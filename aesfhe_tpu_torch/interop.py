@@ -1,0 +1,65 @@
+"""State carried across between the reference package and the port.
+
+The reference keeps residues as uint32 arrays; the port as int32 tensors
+with the same bits.  These functions take and return numpy arrays (a caller
+holding JAX arrays passes `np.asarray(x)`), so this module imports no JAX.
+Like the engine, they place tensors on the card unless the caller passes
+device="cpu".
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.ciphertext import Ciphertext
+from .core.engine import resolve_device
+from .core.keys import GaloisKeySet, PublicKey, SecretKey, SwitchKey
+
+
+def to_tensor(arr, device="cuda") -> torch.Tensor:
+    """uint32 residue array -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(arr)
+    if a.dtype != np.uint32:
+        raise TypeError(f"expected uint32 residues, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32).copy()).to(
+        resolve_device(device))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 residue tensor -> uint32 array with the same bits."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"expected int32 residues, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def ciphertext(data, scale: float, device="cuda") -> Ciphertext:
+    return Ciphertext(to_tensor(data, device), float(scale))
+
+
+def ciphertext_arrays(ct: Ciphertext) -> tuple[np.ndarray, float]:
+    return to_numpy(ct.data), float(ct.scale)
+
+
+def secret_key(s_eval, s_coeff, device="cuda") -> SecretKey:
+    return SecretKey(to_tensor(s_eval, device),
+                     np.asarray(s_coeff, dtype=np.int8))
+
+
+def public_key(b, a, device="cuda") -> PublicKey:
+    return PublicKey(to_tensor(b, device), to_tensor(a, device))
+
+
+def switch_key(b, a, cap: int | None = None, device="cuda") -> SwitchKey:
+    return SwitchKey(to_tensor(b, device), to_tensor(a, device),
+                     None if cap is None else int(cap))
+
+
+def galois_keys(keys: dict, device="cuda") -> GaloisKeySet:
+    """{galois element: (b, a, cap)} -> GaloisKeySet."""
+    return GaloisKeySet(keys={int(g): switch_key(b, a, cap, device)
+                              for g, (b, a, cap) in keys.items()})
+
+
+def switch_key_arrays(key: SwitchKey) -> tuple[np.ndarray, np.ndarray,
+                                               int | None]:
+    return to_numpy(key.b), to_numpy(key.a), key.cap

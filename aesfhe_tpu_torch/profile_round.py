@@ -1,0 +1,95 @@
+"""Where the time of the bit-sliced AES rounds goes on the card.
+
+    python -m aesfhe_tpu_torch.profile_round [--rounds 2] [--profile prod_boot]
+
+Generates the key family from a seed, encrypts 2048 random blocks, drops
+them to the uniform work level ROUND_DEPTH * rounds + 1, runs the rounds
+once untraced (warm-up) and once under torch.profiler, and prints one JSON
+object: the traced wall time, the summed device kernel time and its share
+of the wall (the rest is the card idling on the host), the key-switch
+kernel's share, and the kernels that take the most device time.  Needs a
+CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .core import ks_inner
+from .ops.bitplane import BitState
+from .ops.xor_service import EngineWrapper, XORConfig
+from .pipeline import AESFHE128Bitsliced
+
+KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default="prod_boot")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_round: needs a CUDA card")
+
+    wrap = EngineWrapper(XORConfig(profile=args.profile, rotation_steps=(),
+                                   device="cuda"),
+                         rng=np.random.default_rng(args.seed))
+    aes = AESFHE128Bitsliced(wrap, KEY)
+    eng = wrap.engine
+    work = AESFHE128Bitsliced.ROUND_DEPTH * args.rounds + 1
+    state = np.random.default_rng(args.seed + 1).integers(
+        0, 256, eng.slot_count, dtype=np.uint8)
+    st0 = BitState([eng._drop(b, work) for b in
+                    aes.encrypt_state(state).bits])
+
+    aes.encrypt_rounds(st0, rounds=args.rounds)          # warm-up
+    torch.cuda.synchronize()
+    ks_inner.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        aes.encrypt_rounds(st0, rounds=args.rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ks_inner.launches
+
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type is not None and \
+                "cuda" in str(evt.device_type).lower():
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    device_s = sum(kernels.values()) / 1e6
+    ks_s = sum(v for k, v in kernels.items() if "ks_inner" in k) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    out = dict(card=card, profile=args.profile, rounds=args.rounds,
+               work_level=work, traced_wall_s=wall,
+               device_kernel_s=device_s,
+               device_busy_share=device_s / wall if wall else None,
+               ks_inner_s=ks_s, ks_inner_launches=launches,
+               ks_inner_share_of_device=ks_s / device_s if device_s else None,
+               top_kernels_s=[(k[:90], v / 1e6) for k, v in top])
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,235 @@
+"""Smoke run of the PyTorch/CUDA port (aesfhe_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each announced on its own line; any failure exits non-zero:
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     and which of nvcc, ninja and triton exist;
+  2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
+     all started together);
+  3. kernel phase: each kernel against its plain torch version on random
+     residues at the shapes the main path gives it, exact equality
+     required; kernel time (CUDA events), plain time and the memory bound;
+  4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
+     primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
+     rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
+     decrypted and held block by block against a plain AES oracle; the
+     kernel's launch count over the run must equal the engine's key-switch
+     count.
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.  Needs one CUDA card; imports
+nothing of JAX or of the reference package.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from aesfhe_tpu_torch import kernels
+from aesfhe_tpu_torch.aes_tables import aes128_partial
+from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
+from aesfhe_tpu_torch.core.params import get_params
+from aesfhe_tpu_torch.ops.bitplane import BitState
+from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
+from aesfhe_tpu_torch.pipeline import AESFHE128Bitsliced
+
+PROFILE = "prod_boot"
+# Rounds run from the uniform work level ROUND_DEPTH * ROUNDS + 1, as the
+# flagship script (scripts/run_full_aes.py) drops its state to one work
+# level.  Above level ~29 the prod_boot rescale primes stray up to 25% from
+# Delta, the round's exact scale tracking compounds that through the
+# MixColumns product tree, and the cleanse's coefficient scale rounds to
+# nothing: a third round (from level 43) does not decrypt.  The reference
+# fails there alike: tests/test_torch_drift.py runs that round on
+# prod_boot's primes through both packages, residue for residue.
+ROUNDS = 2
+SEED = 0
+KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")   # FIPS-197 C.1
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
+
+
+def phase(name: str):
+    print(f"== {name}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call from CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ks_inner_case(params, level: int, key_cap, rng, dev):
+    """Kernel vs plain version for one key-switch shape of the slice:
+    digits active at `level` against a key stored full (key_cap=None) or
+    capped at key_cap, with more digits than the switch uses when capped."""
+    rows = ops_impl._key_rows(params, level, key_cap)
+    J = len(params.ks_tables(level)["groups"])
+    if key_cap is None:
+        dnum, Mk = params.dnum, params.L_tot
+    else:
+        dnum = len(params.ks_tables(key_cap)["groups"])
+        Mk = key_cap + 1 + params.num_special
+    basis = ops_impl._rows(params, level, True)
+    qs = np.asarray(params.all_primes, dtype=np.int64)[basis]
+    qk = np.ones(Mk, dtype=np.int64)
+    qk[rows] = qs
+    qk[qk == 1] = params.q_primes[0]          # rows this switch does not read
+    N = params.n
+    d = rng.integers(0, 1 << 62, (J, len(rows), N)) % qs[:, None]
+    kb, ka = (rng.integers(0, 1 << 62, (dnum, Mk, N)) % qk[:, None]
+              for _ in range(2))
+    qinv = [rns.montgomery_consts(int(q))[0] for q in qs]
+
+    def dev_u32(a):
+        return rns.narrow(torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                          device=dev))
+
+    t = [dev_u32(a) for a in (d, kb, ka, qs, qinv)]
+    args = (t[0], t[1], t[2], rows, t[3], t[4])
+    got = ks_inner.ks_inner(*args)
+    want = ks_inner.ks_inner_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"ks_inner disagrees with its plain version at "
+                             f"level {level}, cap {key_cap}: max |err| {err}")
+    ms = cuda_ms(lambda: ks_inner.ks_inner(*args))
+    plain_ms = cuda_ms(lambda: ks_inner.ks_inner_plain(*args), reps=5)
+    bound_ms = ks_inner.bytes_moved(J, len(rows), N) / HBM_BYTES_PER_S * 1e3
+    print(f"ks_inner level={level} cap={key_cap} J={J} M={len(rows)} "
+          f"Mk={Mk} N={N}: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.0%} of bound)",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+
+    phase("card")
+    card = card_line()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print(f"tools: nvcc={kernels.nvcc_path()} ninja={shutil.which('ninja')} "
+          f"triton={importlib.util.find_spec('triton') is not None}",
+          flush=True)
+
+    phase("build")
+    t0 = time.perf_counter()
+    built = kernels.build()
+    print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    phase("kernels")
+    params = get_params(PROFILE)
+    rng = np.random.default_rng(SEED)
+    # the slice's first (and widest) key-switch level, a middle and a late
+    # one, against full-layout keys as the slice stores them, and one
+    # level-capped key layout
+    work_level = AESFHE128Bitsliced.ROUND_DEPTH * ROUNDS + 1
+    cases = [ks_inner_case(params, lvl, None, rng, dev)
+             for lvl in (work_level - 1, 14, 3)]
+    ks_inner_case(params, 14, 17, rng, dev)
+    top = cases[0]
+
+    phase("slice")
+    t0 = time.perf_counter()
+    wrap = EngineWrapper(XORConfig(profile=PROFILE, rotation_steps=(),
+                                   device="cuda"),
+                         rng=np.random.default_rng(SEED))
+    aes = AESFHE128Bitsliced(wrap, KEY, refresh=None)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    eng = wrap.engine
+    print(f"keygen {keygen_s:.2f} s: relin + conj + "
+          f"{len(wrap.rot_key.keys)} rotation keys, dnum={params.dnum}, "
+          f"L_tot={params.L_tot}, N={params.n}", flush=True)
+
+    sc = eng.slot_count
+    state = np.random.default_rng(SEED + 1).integers(0, 256, sc,
+                                                     dtype=np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    eng.reset_counters()
+    ks_inner.launches = 0
+    t0 = time.perf_counter()
+    st = aes.encrypt_state(state)
+    st = BitState([eng._drop(b, work_level) for b in st.bits])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = aes.encrypt_rounds(st, rounds=ROUNDS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = aes.decrypt_state(st)
+    t3 = time.perf_counter()
+    launches = ks_inner.launches
+    counters = dict(eng.counters)
+
+    want = np.concatenate([aes128_partial(state[b:b + 16], KEY, ROUNDS)
+                           for b in range(0, sc, 16)])
+    bad = int(np.sum(got != want))
+    worst = 0.0
+    for ct in st.bits:
+        v = np.real(wrap.decrypt(ct))
+        if v.shape != (sc,) or not np.all(np.isfinite(v)):
+            raise AssertionError("decrypted plane is not finite or mis-shaped")
+        worst = max(worst, float(np.max(np.abs(np.abs(v) - 1.0))))
+    print(f"{sc // 16} blocks, {ROUNDS} rounds from level {work_level}: "
+          f"encrypt_state "
+          f"{t1 - t0:.2f} s, rounds {t2 - t1:.2f} s "
+          f"({(t2 - t1) / ROUNDS:.2f} s per round incl. the closing "
+          f"AddRoundKey), decrypt_state {t3 - t2:.2f} s; exit level "
+          f"{st.level}; max | |slot| - 1 | = {worst:.3e}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"engine counters {counters}; ks_inner launches {launches}")
+    if bad:
+        raise AssertionError(f"{bad} of {sc} bytes differ from AES-128 "
+                             f"after {ROUNDS} rounds")
+    print(f"all {sc // 16} blocks equal aes128_partial(block, key, {ROUNDS})")
+    if launches <= 0 or launches != counters["keyswitch"]:
+        raise AssertionError(f"ks_inner launched {launches} times for "
+                             f"{counters['keyswitch']} key-switches")
+
+    print(json.dumps({"kernels": [dict(
+        name="ks_inner", route="cuda",
+        source="aesfhe_tpu_torch/csrc/ks_inner.cu",
+        replaces="aesfhe_tpu/core/pallas_ks.py:38",
+        launches=launches, max_abs_err=top["max_abs_err"], ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by="bytes", library_ms=None)]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
