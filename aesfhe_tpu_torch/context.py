@@ -1,5 +1,6 @@
 """EngineContext: key ownership + ergonomic encrypt/decrypt.  Counterpart
-of `aesfhe_tpu/context.py` without the device mesh and the bootstrap keys.
+of `aesfhe_tpu/context.py` without the device mesh and the small bootstrap
+flavor.
 """
 from __future__ import annotations
 
@@ -17,12 +18,15 @@ class EngineContext:
 
     `rotation_steps=None` generates the power-of-two rotation ladder; a
     sequence (possibly empty) generates only those steps, and services add
-    the steps they need through EngineWrapper.ensure_rotation_steps."""
+    the steps they need through EngineWrapper.ensure_rotation_steps.
+    `use_bootstrap` also generates the bootstrap key (its Galois keys
+    last, as the reference draws them)."""
 
     def __init__(self, *, params: CKKSParams | None = None,
                  profile: str | None = None, device="cuda",
                  rng: np.random.Generator | None = None,
-                 rotation_steps: Sequence[int] | None = None):
+                 rotation_steps: Sequence[int] | None = None,
+                 use_bootstrap: bool = False):
         self.engine = Engine(params, profile=profile, device=device, rng=rng)
         eng = self.engine
         self.secret_key = eng.create_secret_key()
@@ -37,6 +41,8 @@ class EngineContext:
                 self.secret_key, list(rotation_steps))
         else:
             self.rotation_key = GaloisKeySet(keys={})
+        self.bootstrap_key = (eng.create_bootstrap_key(self.secret_key)
+                              if use_bootstrap else None)
 
     @classmethod
     def from_keys(cls, engine: Engine, *, secret, public, relin, conj,
@@ -50,6 +56,7 @@ class EngineContext:
         ctx.relinearization_key = relin
         ctx.conjugation_key = conj
         ctx.rotation_key = rotation
+        ctx.bootstrap_key = None
         return ctx
 
     def encrypt(self, data):

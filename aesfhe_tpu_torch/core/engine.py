@@ -72,23 +72,33 @@ def _encode_core(params, tabs, residues, level: int):
     return ops_impl.ntt_rows(xm, tr).int()
 
 
-def _digits_encode_core(params, tabs, payload, level: int):
-    """Exact encode from base-2^22 digits: payload uint32 [5, N] = four
-    digit rows + a sign row (encoding.coeffs_to_digits); r_i =
-    +-(sum_k d_k (2^(22k) mod q_i)) mod q_i, then Montgomery + NTT."""
+def _digits_batch_core(params, tabs, payloads, level: int):
+    """Exact encode from base-2^22 digits, batched: payloads [K, 5, N]
+    (four digit rows + a sign row each, encoding.coeffs_to_digits) ->
+    Montgomery-eval plaintexts int32 [K, level+1, N]; per prime
+    r_i = +-(sum_k d_k (2^(22k) mod q_i)) mod q_i, then Montgomery + NTT."""
+    tr = ops_impl._q_tr(params, tabs, level)
+    q = tr.q.reshape(1, -1, 1)
     primes = [int(p) for p in params.q_primes[:level + 1]]
-    pay = torch.as_tensor(np.asarray(payload, dtype=np.int64),
+    w = tabs.const(("digit_w", level),
+                   lambda: [[pow(1 << 22, k, p) for p in primes]
+                            for k in range(4)])                 # [4, L]
+    pay = torch.as_tensor(np.asarray(payloads, dtype=np.int64),
                           device=tabs.device)
-    q = torch.as_tensor(primes, dtype=torch.int64,
-                        device=tabs.device).reshape(-1, 1)
     acc = None
     for k in range(4):
-        w = torch.as_tensor([pow(1 << 22, k, p) for p in primes],
-                            dtype=torch.int64, device=tabs.device)
-        term = rns.shoup_mul(pay[k][None, :], w.reshape(-1, 1), q)
+        term = rns.shoup_mul(pay[:, k, None, :], w[k].reshape(1, -1, 1), q)
         acc = term if acc is None else rns.add_mod(acc, term, q)
-    res = torch.where(pay[4][None, :] != 0, rns.neg_mod(acc, q), acc)
-    return _encode_core(params, tabs, res, level)
+    res = torch.where(pay[:, 4, None, :] != 0, rns.neg_mod(acc, q), acc)
+    xm = rns.to_mont(res, q, tr.r2.reshape(1, -1, 1),
+                     tr.rinv.reshape(1, -1, 1))
+    return ops_impl.ntt_rows(xm, tr).int()
+
+
+def _digits_encode_core(params, tabs, payload, level: int):
+    """One [5, N] digit payload -> Montgomery-eval plaintext [level+1, N]."""
+    return _digits_batch_core(params, tabs, np.asarray(payload)[None],
+                              level)[0]
 
 
 class Engine:
@@ -176,6 +186,11 @@ class Engine:
         return keys_mod.gen_rotation_keys(self.params, self.tabs, sk,
                                           self.rng, list(steps))
 
+    def create_bootstrap_key(self, sk: SecretKey, rot=None,
+                             hi_prec: bool | None = None):
+        from .. import bootstrap as _bs
+        return _bs.create_bootstrap_key(self, sk, rot=rot, hi_prec=hi_prec)
+
     # ----- encode / encrypt / decrypt ---------------------------------
     def encode(self, vec, level: int | None = None,
                scale: float | None = None, device: bool = False) -> Plaintext:
@@ -198,6 +213,19 @@ class Engine:
         coeffs = encoding.slots_to_coeffs(np.asarray(vec), self.params, scale)
         digits, neg = encoding.coeffs_to_digits(coeffs)
         return np.concatenate([digits, neg[None].astype(np.uint32)])
+
+    def payload_to_plaintext(self, payload: np.ndarray, level: int,
+                             scale: float) -> Plaintext:
+        """Device half of the exact encode: per-prime CRT of the digit
+        payload + Montgomery + NTT."""
+        return Plaintext(_digits_encode_core(self.params, self.tabs, payload,
+                                             level), scale)
+
+    def materialize_payloads(self, payloads, level: int) -> torch.Tensor:
+        """[K, 5, N] digit payloads (a list or a stack) -> [K, level+1, N]
+        Montgomery-eval plaintext stack, the input of fused_ptd_sum."""
+        return _digits_batch_core(self.params, self.tabs, np.stack(payloads),
+                                  level)
 
     def encrypt(self, data, pk: PublicKey, device: bool = False) -> Ciphertext:
         params = self.params
@@ -256,15 +284,23 @@ class Engine:
             raise RuntimeError("out of levels: bootstrap required")
 
     def _rescale(self, ct: Ciphertext) -> Ciphertext:
-        """Drop one scale unit (one prime; paired-prime profiles need the
-        fused pair rescale, which comes with the bootstrap slice)."""
-        if self.params.rescale_primes != 1:
-            raise NotImplementedError(
-                "paired-prime rescale is not ported yet")
+        """Drop one scale unit: one prime, or on paired-prime profiles the
+        fused pair rescale."""
+        if self.params.rescale_primes == 2:
+            return self._rescale_pair(ct)
         self._count("rescale")
         ql = self.params.q_primes[ct.level]
         data = ops_impl.ct_rescale(self.params, self.tabs, ct.data)
         return Ciphertext(data, ct.scale / ql)
+
+    def _rescale_pair(self, ct: Ciphertext) -> Ciphertext:
+        """Drop two primes with one rounding (ops_impl.ct_rescale_pair): the
+        rescale of every product of the bootstrap's hi-precision tier."""
+        self._count("rescale")
+        qa = float(self.params.q_primes[ct.level])
+        qb = float(self.params.q_primes[ct.level - 1])
+        data = ops_impl.ct_rescale_pair(self.params, self.tabs, ct.data)
+        return Ciphertext(data, ct.scale / (qa * qb))
 
     def _scalar_mul_consts(self, value: complex, scale: float, level: int,
                            mont: bool) -> torch.Tensor:
@@ -399,6 +435,24 @@ class Engine:
             ct = Ciphertext(self._relin_data(ct.data, relin_key), ct.scale)
         return self._rescale(ct)
 
+    def multiply_pair(self, a: Ciphertext, b: Ciphertext,
+                      relin_key: SwitchKey | None = None) -> Ciphertext:
+        """ct*ct multiply that drops a prime pair with the fused two-prime
+        rescale: multiply() plus one more _rescale, in one rounding."""
+        lvl = min(a.level, b.level)
+        self._check_levels(lvl - 1)          # the pair drop needs 2 limbs
+        a = self._drop(a, lvl)
+        b = self._drop(b, lvl)
+        if a.degree != 1 or b.degree != 1:
+            raise RuntimeError("multiply expects degree-1 (relinearized) inputs")
+        self._count("ct_mul")
+        ct = Ciphertext(ops_impl.ct_tensor(self.params, self.tabs, a.data,
+                                           b.data), a.scale * b.scale)
+        if relin_key is not None:
+            self._count("keyswitch")
+            ct = Ciphertext(self._relin_data(ct.data, relin_key), ct.scale)
+        return self._rescale_pair(ct)
+
     def _mul_ct_pt(self, a: Ciphertext, b) -> Ciphertext:
         if isinstance(b, Plaintext):
             self._check_levels(a.level)
@@ -440,6 +494,17 @@ class Engine:
 
     def multiply_plain(self, ct: Ciphertext, val) -> Ciphertext:
         return self._mul_ct_pt(ct, val)
+
+    def multiply_renorm(self, ct: Ciphertext, value: complex,
+                        target_scale: float | None = None) -> Ciphertext:
+        """Scalar multiply whose encode scale makes the rescaled result land
+        on target_scale (default Delta): resets a squaring chain's scale
+        drift without an extra level."""
+        target = self.params.scale if target_scale is None else target_scale
+        qd = 1.0
+        for i in range(self.params.rescale_primes):
+            qd *= float(self.params.q_primes[ct.level - i])
+        return self._mul_scalar(ct, complex(value), target * qd / ct.scale)
 
     def multiply_i(self, ct: Ciphertext) -> Ciphertext:
         """Exact slot-wise multiply by i (zeta4 encoded at scale 1): no
@@ -647,6 +712,72 @@ class Engine:
             out = self._add_scalar(out, complex(constant), out.scale)
         return self._rescale(out)
 
+    def _rescale_sum(self, out: Ciphertext, rescales: int) -> Ciphertext:
+        if rescales == 2 and self.params.rescale_primes == 1:
+            return self._rescale_pair(out)
+        for _ in range(rescales):
+            out = self._rescale(out)
+        return out
+
+    def fused_pt_sum(self, pairs: Sequence[tuple],
+                     rescales: int = 1) -> Ciphertext:
+        """sum_k ct_k * pt_k in one pass, rescaled once after the sum
+        (rescales=2: the fused pair drop of the hi-precision tier).  The cts
+        share (level, scale), and so do the pts."""
+        cts = [p[0] for p in pairs]
+        pts = [p[1] for p in pairs]
+        lvl = min(min(ct.level for ct in cts), min(pt.level for pt in pts))
+        self._check_levels(lvl)
+        base = cts[0].scale
+        ps = pts[0].scale
+        for ct in cts:
+            if abs(ct.scale - base) / base > _SCALE_ACCEPT:
+                raise ValueError("fused_pt_sum ct scales differ")
+        for pt in pts:
+            if abs(pt.scale - ps) / ps > _SCALE_ACCEPT:
+                raise ValueError("fused_pt_sum pt scales differ")
+        self._count("pt_mul", len(pairs))
+        stack = torch.stack([ct.data[:, :lvl + 1] for ct in cts])
+        ptd = torch.stack([pt.data[:lvl + 1] for pt in pts])
+        data = ops_impl.ct_linear_combo_dense(self.params, self.tabs, stack,
+                                              ptd)
+        return self._rescale_sum(Ciphertext(data, base * ps), rescales)
+
+    def fused_ptd_sum(self, cts: Sequence[Ciphertext], ptd: torch.Tensor,
+                      pt_scale: float, rescales: int = 1) -> Ciphertext:
+        """fused_pt_sum against a materialized plaintext stack ptd
+        [K, >= lvl+1, N] (materialize_payloads)."""
+        lvl = min(ct.level for ct in cts)
+        self._check_levels(lvl)
+        if len(cts) != ptd.shape[0]:
+            raise ValueError(f"fused_ptd_sum: {len(cts)} ciphertexts vs "
+                             f"{ptd.shape[0]} plaintext rows")
+        if ptd.shape[1] < lvl + 1:
+            raise ValueError(
+                f"fused_ptd_sum: plaintext stack has {ptd.shape[1]} limb "
+                f"rows but the ciphertexts sit at level {lvl}")
+        base = cts[0].scale
+        for ct in cts:
+            if abs(ct.scale - base) / base > _SCALE_ACCEPT:
+                raise ValueError("fused_ptd_sum ct scales differ")
+        self._count("pt_mul", len(cts))
+        stack = torch.stack([ct.data[:, :lvl + 1] for ct in cts])
+        data = ops_impl.ct_linear_combo_dense(self.params, self.tabs, stack,
+                                              ptd[:, :lvl + 1])
+        return self._rescale_sum(Ciphertext(data, base * pt_scale), rescales)
+
+    def fused_payload_sum(self, cts: Sequence[Ciphertext], payloads,
+                          pt_scale: float, rescales: int = 1) -> Ciphertext:
+        """fused_ptd_sum whose plaintexts arrive as host digit payloads,
+        materialized in one batch."""
+        if len(cts) != len(payloads):
+            raise ValueError(f"fused_payload_sum: {len(cts)} ciphertexts vs "
+                             f"{len(payloads)} payloads")
+        lvl = min(ct.level for ct in cts)
+        return self.fused_ptd_sum(cts, self.materialize_payloads(payloads,
+                                                                 lvl),
+                                  pt_scale, rescales)
+
     def inner_product(self, lhs: Sequence[Ciphertext],
                       rhs: Sequence[Ciphertext],
                       relin_key: SwitchKey) -> Ciphertext:
@@ -668,3 +799,11 @@ class Engine:
         self._count("keyswitch")
         data = self._relin_data(d, relin_key)
         return self._rescale(Ciphertext(data, scale_a * scale_b))
+
+    # ----- bootstrap (delegated) --------------------------------------
+    def bootstrap(self, ct: Ciphertext, relin_key: SwitchKey,
+                  conj_key: SwitchKey, bootstrap_key,
+                  phases: list | None = None) -> Ciphertext:
+        from .. import bootstrap as _bs
+        return _bs.bootstrap(self, ct, relin_key, conj_key, bootstrap_key,
+                             phases=phases)

@@ -1,5 +1,6 @@
 """CKKS primitive operations on torch tensors.  Counterpart of
-`aesfhe_tpu/core/ops_impl.py` (its main-path set).
+`aesfhe_tpu/core/ops_impl.py` (its main-path set, the bootstrap's pair
+rescale and ModRaise included).
 
 Conventions: ciphertext data are int32 tensors of uint32 Montgomery residues
 in the NTT evaluation domain; every residue is < q <= 2^30, so int32 holds
@@ -74,6 +75,7 @@ class DeviceTables:
         self.xhalf_sign_neg = torch.as_tensor(params.xhalf_sign_neg,
                                               device=self.device)
         self._rows: dict[tuple, _RowTables] = {}
+        self._consts: dict = {}
 
     def rows(self, rows) -> _RowTables:
         key = tuple(int(r) for r in rows)
@@ -82,6 +84,17 @@ class DeviceTables:
             tr = _RowTables(self, key)
             self._rows[key] = tr
         return tr
+
+    def const(self, key, make, dtype=torch.int64) -> torch.Tensor:
+        """A host table `make()` as a tensor on the device, uploaded once per
+        key: an upload from pageable host memory waits for the device's
+        queue, so per-call uploads would stall the host on every op."""
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.as_tensor(np.asarray(make()), dtype=dtype,
+                                device=self.device)
+            self._consts[key] = t
+        return t
 
 
 def _rows(params: CKKSParams, level: int, with_special: bool) -> np.ndarray:
@@ -281,20 +294,87 @@ def ct_rescale(params, tabs, a):
     q_rest = tr_rest.q.reshape(1, -1, 1)
     red = rns.barrett_reduce(last_plain, q_rest)
     rest = [int(q) for q in params.q_primes[:level]]
-    ql_mod = _dev([ql % q for q in rest], tabs, (1, -1, 1))
+    ql_mod = tabs.const(("ql_mod", level),
+                        lambda: [ql % q for q in rest]).reshape(1, -1, 1)
     lifted = torch.where(last_plain >= (ql + 1) // 2,
                          rns.sub_mod(red, ql_mod, q_rest), red)
     lifted_m = rns.to_mont(lifted, q_rest, tr_rest.r2.reshape(1, -1, 1),
                            tr_rest.rinv.reshape(1, -1, 1))
     lifted_eval = ntt_rows(lifted_m, tr_rest)
-    qlinv = _dev([pow(ql, -1, q) for q in rest], tabs, (1, -1, 1))
+    qlinv = tabs.const(("qlinv", level),
+                       lambda: [pow(ql, -1, q) for q in rest]).reshape(1, -1, 1)
     diff = rns.sub_mod(a[:, :level, :].long(), lifted_eval, q_rest)
     return rns.shoup_mul(diff, qlinv, q_rest).int()
+
+
+def ct_rescale_pair(params, tabs, a):
+    """Drop the top two primes q_a = q_l, q_b = q_{l-1} with one rounding:
+    Garner-combine the two dropped limbs into v mod q_a*q_b, lift the
+    centred v into every remaining prime, subtract, multiply by
+    (q_a*q_b)^-1.  [k, l+1, N] -> [k, l-1, N]."""
+    k, lp1, n = a.shape
+    level = lp1 - 1
+    assert level >= 2, "need two droppable limbs"
+    qa = int(params.q_primes[level])
+    qb = int(params.q_primes[level - 1])
+    tr_rest = _q_tr(params, tabs, level - 2)
+    tr_pair = tabs.rows([level - 1, level])
+    pair_plain = rns.from_mont(intt_rows(a[:, level - 1:, :].long(), tr_pair),
+                               tr_pair.q.reshape(1, -1, 1),
+                               tr_pair.rinv.reshape(1, -1, 1))
+    v_b = pair_plain[:, 0:1, :]                          # value mod q_b
+    v_a = pair_plain[:, 1:2, :]                          # value mod q_a
+    # Garner: v = v_a + q_a * t,  t = (v_b - v_a) * q_a^-1 mod q_b
+    t = rns.shoup_mul(rns.sub_mod(v_b, rns.barrett_reduce(v_a, qb), qb),
+                      pow(qa % qb, -1, qb), qb)
+    # exact centred test: v >= (q_a*q_b + 1)/2  <=>
+    #   t > (q_b-1)/2  or  (t == (q_b-1)/2 and v_a >= (q_a+1)/2)
+    h = (qb - 1) // 2
+    high = (t > h) | ((t == h) & (v_a >= (qa + 1) // 2))
+    q_rest = tr_rest.q.reshape(1, -1, 1)
+    rest = [int(q) for q in params.q_primes[:level - 1]]
+
+    def const(name, make):
+        return tabs.const((name, level), make).reshape(1, -1, 1)
+
+    qa_mod = const("pair_qa", lambda: [qa % q for q in rest])
+    qab_mod = const("pair_qab", lambda: [qa * qb % q for q in rest])
+    qab_inv = const("pair_qab_inv",
+                    lambda: [pow(qa * qb % q, -1, q) for q in rest])
+    lift = rns.add_mod(rns.barrett_reduce(v_a, q_rest),
+                       rns.shoup_mul(rns.barrett_reduce(t, q_rest), qa_mod,
+                                     q_rest), q_rest)
+    lifted = torch.where(high, rns.sub_mod(lift, qab_mod, q_rest), lift)
+    lifted_m = rns.to_mont(lifted, q_rest, tr_rest.r2.reshape(1, -1, 1),
+                           tr_rest.rinv.reshape(1, -1, 1))
+    diff = rns.sub_mod(a[:, :level - 1, :].long(),
+                       ntt_rows(lifted_m, tr_rest), q_rest)
+    return rns.shoup_mul(diff, qab_inv, q_rest).int()
 
 
 def ct_drop_to(params: CKKSParams, a, target_level: int):
     """Modulus switch down by dropping limbs (scale unchanged)."""
     return a[:, :target_level + 1, :]
+
+
+def mod_raise_core(params, tabs, a):
+    """Bootstrap ModRaise: [k, 1, N] over q0 -> [k, num_q, N] over the full
+    chain by centred-lifting the bottom-prime coefficients into every prime
+    (the plaintext becomes m + q0*I)."""
+    q0 = int(params.q_primes[0])
+    tr0 = tabs.rows([0])
+    tr_all = _q_tr(params, tabs, params.top_level)
+    plain = rns.from_mont(intt_rows(a.long(), tr0), tr0.q.reshape(1, -1, 1),
+                          tr0.rinv.reshape(1, -1, 1))          # [k, 1, N]
+    qv = tr_all.q.reshape(1, -1, 1)
+    q0_mod = tabs.const(("q0_mod",), lambda: [q0 % int(q) for q in
+                                              params.q_primes])
+    red = rns.barrett_reduce(plain, qv)
+    lifted = torch.where(plain >= (q0 + 1) // 2,
+                         rns.sub_mod(red, q0_mod.reshape(1, -1, 1), qv), red)
+    lifted_m = rns.to_mont(lifted, qv, tr_all.r2.reshape(1, -1, 1),
+                           tr_all.rinv.reshape(1, -1, 1))
+    return ntt_rows(lifted_m, tr_all).int()
 
 
 # ---------------------------------------------------------------------------
@@ -316,13 +396,16 @@ def ks_decompose(params, tabs, c_eval):
                             tr_q.q.reshape(-1, 1), tr_q.rinv.reshape(-1, 1))
     q_basis = tr_b.q.reshape(1, -1, 1)
     digits = []
-    for g in kst["groups"]:
+    for j, g in enumerate(kst["groups"]):
         limbs = g["limbs"]
-        qg = _dev([params.q_primes[i] for i in limbs], tabs, (-1, 1))
+        qg = tabs.const(("ksd_q", level, j),
+                        lambda: [params.q_primes[i] for i in limbs])
+        inv_w = tabs.const(("ksd_inv", level, j), lambda: g["inv_w"])
+        conv_w = tabs.const(("ksd_conv", level, j), lambda: g["conv_w"])
         y = rns.shoup_mul(c_plain[limbs[0]:limbs[-1] + 1],
-                          _dev(g["inv_w"], tabs, (-1, 1)), qg)      # [a, N]
+                          inv_w.reshape(-1, 1), qg.reshape(-1, 1))  # [a, N]
         # ext[m] = sum_a y_a * (Qt/q_a mod basis_m) mod basis_m
-        terms = (y[:, None, :] * _dev(g["conv_w"], tabs)[:, :, None]) % q_basis
+        terms = (y[:, None, :] * conv_w[:, :, None]) % q_basis
         digits.append(terms.sum(dim=0) % q_basis[0])
     dstack = torch.stack(digits)                                   # [d, M, N]
     qb = tr_b.q.reshape(1, -1, 1)
@@ -397,8 +480,9 @@ def _mod_down_specials(params, tabs, x, level: int):
     mdt = params.md_tables(level)
     nl = x.dim() - 2
 
-    def shp(t, rows):
-        return _dev(t, tabs, (1,) * nl + (rows, 1))
+    def shp(name, rows):
+        return tabs.const(("md", level, name),
+                          lambda: mdt[name]).reshape((1,) * nl + (rows, 1))
 
     tr_s = tabs.rows(np.arange(params.num_q, params.num_q + K))
     tr_q = _q_tr(params, tabs, level)
@@ -407,29 +491,30 @@ def _mod_down_specials(params, tabs, x, level: int):
 
     d_plain = rns.from_mont(intt_rows(x[..., lp1:, :], tr_s), ps,
                             tr_s.rinv.reshape((1,) * nl + (K, 1)))
-    y = rns.shoup_mul(d_plain, shp(mdt["inv_w"], K), ps)
-    conv_w = _dev(mdt["conv_w"], tabs)
+    y = rns.shoup_mul(d_plain, shp("inv_w", K), ps)
+    conv_w = tabs.const(("md", level, "conv_w"), lambda: mdt["conv_w"])
     conv = None
     for i in range(K):
         t = (y[..., i:i + 1, :] * conv_w[i].reshape((1,) * nl + (lp1, 1))) % qv
         conv = t if conv is None else conv + t
     conv %= qv
 
-    inv_p = torch.as_tensor(
-        (1.0 / np.asarray(params.special_primes, dtype=np.float64)
-         ).astype(np.float32), device=tabs.device)
+    inv_p = tabs.const(
+        ("md_inv_p",),
+        lambda: (1.0 / np.asarray(params.special_primes, dtype=np.float64)
+                 ).astype(np.float32), dtype=torch.float32)
     yf = y.to(torch.float32)
     frac = yf[..., 0:1, :] * inv_p[0]
     for i in range(1, K):
         frac = frac + yf[..., i:i + 1, :] * inv_p[i]
     vhat = torch.round(frac).to(torch.int64)
-    corr = rns.shoup_mul(vhat, shp(mdt["pmod_w"], lp1), qv)
+    corr = rns.shoup_mul(vhat, shp("pmod_w", lp1), qv)
     conv = rns.sub_mod(conv, corr, qv)
 
     conv_m = rns.to_mont(conv, qv, tr_q.r2.reshape((1,) * nl + (lp1, 1)),
                          tr_q.rinv.reshape((1,) * nl + (lp1, 1)))
     diff = rns.sub_mod(x[..., :lp1, :], ntt_rows(conv_m, tr_q), qv)
-    return rns.shoup_mul(diff, shp(mdt["pinv_w"], lp1), qv)
+    return rns.shoup_mul(diff, shp("pinv_w", lp1), qv)
 
 
 def _mod_down_specials_exact(params, tabs, x, level: int):

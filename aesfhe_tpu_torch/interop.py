@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bootstrap import BootstrapKey, build_factored_plans
 from .core.ciphertext import Ciphertext
 from .core.engine import resolve_device
 from .core.keys import GaloisKeySet, PublicKey, SecretKey, SwitchKey
@@ -58,6 +59,20 @@ def galois_keys(keys: dict, device="cuda") -> GaloisKeySet:
     """{galois element: (b, a, cap)} -> GaloisKeySet."""
     return GaloisKeySet(keys={int(g): switch_key(b, a, cap, device)
                               for g, (b, a, cap) in keys.items()})
+
+
+def bootstrap_key(params, keys: dict, *, K: float, cheb_deg: int,
+                  double_angles: int, prescale: float, hi_prec: bool,
+                  hi_scale: float, device="cuda") -> BootstrapKey:
+    """A bootstrap key from the reference's Galois keys ({galois element:
+    (b, a, cap)}) and scalar fields; the plans are rebuilt from `params`."""
+    stc_plan, cts_plan = build_factored_plans(params)
+    return BootstrapKey(rot=galois_keys(keys, device), K=float(K),
+                        cheb_deg=int(cheb_deg),
+                        double_angles=int(double_angles),
+                        prescale=float(prescale), hi_prec=bool(hi_prec),
+                        hi_scale=float(hi_scale), stc_plan=stc_plan,
+                        cts_plan=cts_plan)
 
 
 def switch_key_arrays(key: SwitchKey) -> tuple[np.ndarray, np.ndarray,

@@ -13,16 +13,19 @@ from ..core.engine import Engine
 
 
 class XORConfig:
-    """Engine configuration: ring profile (or explicit params), device, and
-    the rotation keys generated up front (None -> power-of-two ladder; a
-    sequence, possibly empty -> only those steps)."""
+    """Engine configuration: ring profile (or explicit params), device, the
+    rotation keys generated up front (None -> power-of-two ladder; a
+    sequence, possibly empty -> only those steps), and whether to generate
+    the bootstrap key."""
 
     def __init__(self, profile: str | None = None, params=None,
-                 rotation_steps=None, device="cuda"):
+                 rotation_steps=None, device="cuda",
+                 use_bootstrap: bool = False):
         self.profile = profile
         self.params = params
         self.rotation_steps = rotation_steps
         self.device = device
+        self.use_bootstrap = use_bootstrap
 
 
 class EngineWrapper:
@@ -35,7 +38,8 @@ class EngineWrapper:
         if ctx is None:
             ctx = EngineContext(params=config.params, profile=config.profile,
                                 device=config.device, rng=rng,
-                                rotation_steps=config.rotation_steps)
+                                rotation_steps=config.rotation_steps,
+                                use_bootstrap=config.use_bootstrap)
         self.ctx = ctx
         self.engine: Engine = ctx.engine
         self.public_key = ctx.public_key
@@ -43,6 +47,7 @@ class EngineWrapper:
         self.relin_key = ctx.relinearization_key
         self.conj_key = ctx.conjugation_key
         self.rot_key = ctx.rotation_key
+        self.boot_key = ctx.bootstrap_key
 
     def encrypt(self, data, device: bool = False):
         return self.engine.encrypt(np.asarray(data), self.public_key,
@@ -73,6 +78,11 @@ class EngineWrapper:
 
     def rotate(self, ct, steps: int):
         return self.engine.rotate(ct, self.rot_key, steps)
+
+    def bootstrap(self, ct, phases: list | None = None):
+        """Refresh `ct` with the context's bootstrap key (eager path)."""
+        return self.engine.bootstrap(ct, self.relin_key, self.conj_key,
+                                     self.boot_key, phases=phases)
 
     def relinearize(self, ct, relin_key=None):
         # degree-2 only; a degree-1 input comes back unchanged

@@ -1,14 +1,25 @@
-"""Where the time of the bit-sliced AES rounds goes on the card.
+"""Where the time of the bit-sliced AES rounds, or of one refresh, goes on
+the card.
 
     python -m aesfhe_tpu_torch.profile_round [--rounds 2] [--profile prod_boot]
+    python -m aesfhe_tpu_torch.profile_round --refresh [--profile prod_boot]
 
-Generates the key family from a seed, encrypts 2048 random blocks, drops
-them to the uniform work level ROUND_DEPTH * rounds + 1, runs the rounds
-once untraced (warm-up) and once under torch.profiler, and prints one JSON
-object: the traced wall time, the summed device kernel time and its share
-of the wall (the rest is the card idling on the host), the key-switch
-kernel's share, and the kernels that take the most device time.  Needs a
-CUDA card.
+Rounds: generates the key family from a seed, encrypts 2048 random blocks,
+drops them to the uniform work level ROUND_DEPTH * rounds + 1, runs the
+rounds once untraced (warm-up) and once under torch.profiler.
+
+`--refresh`: the flagship's setup (run_full_aes.setup: the bootstrap key
+and its Galois keys shared into the round's set), one round from the work
+level ROUND_DEPTH + 1 to reach the state a refresh meets, one pair-packed
+refresh (4 bootstraps) untraced, which fills the diagonal cache, and a
+second one under torch.profiler; then one more bootstrap with the phase
+timer on (each phase waits for the card), for the seconds and exit level
+of each phase.
+
+Prints one JSON object: the traced wall time, the summed device kernel
+time and its share of the wall (the rest is the card idling on the host),
+the key-switch kernel's share, and the kernels that take the most device
+time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import run_full_aes
 from .core import ks_inner
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
@@ -37,15 +49,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", default="prod_boot")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_round: needs a CUDA card")
-
+def _rounds_work(args):
+    """(what to trace, its description) for the rounds."""
     wrap = EngineWrapper(XORConfig(profile=args.profile, rotation_steps=(),
                                    device="cuda"),
                          rng=np.random.default_rng(args.seed))
@@ -56,14 +61,51 @@ def main(argv=None) -> dict:
         0, 256, eng.slot_count, dtype=np.uint8)
     st0 = BitState([eng._drop(b, work) for b in
                     aes.encrypt_state(state).bits])
+    return (lambda: aes.encrypt_rounds(st0, rounds=args.rounds),
+            dict(rounds=args.rounds, work_level=work))
 
-    aes.encrypt_rounds(st0, rounds=args.rounds)          # warm-up
+
+def _refresh_work(args):
+    """(what to trace, its description) for one pair-packed refresh."""
+    aes, _ = run_full_aes.setup(args.profile, args.seed)
+    eng = aes.eng.engine
+    state = run_full_aes.make_state(eng.slot_count, args.seed + 1)
+    st = BitState([eng._drop(b, aes.ROUND_DEPTH + 1) for b in
+                   aes.encrypt_state(state).bits])
+    st = run_full_aes.run_round(aes, st, 1, 10)
+    phases: list = []
+    packed = eng.add(st.bits[0], eng.multiply_i(st.bits[1]))
+
+    def phase_run():
+        aes.eng.bootstrap(packed, phases=phases)
+        return [dict(phase=n, s=s, exit_level=lvl, ops=ops)
+                for n, s, lvl, ops in phases]
+
+    return (lambda: aes._refresh(st, aes.ROUND_DEPTH),
+            dict(refresh_input_level=st.level, bootstraps_traced=4,
+                 phase_run=phase_run))
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default="prod_boot")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--refresh", action="store_true",
+                    help="trace one warm pair-packed refresh instead")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_round: needs a CUDA card")
+
+    work, desc = (_refresh_work if args.refresh else _rounds_work)(args)
+    phase_run = desc.pop("phase_run", None)
+    work()                                               # warm-up
     torch.cuda.synchronize()
     ks_inner.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        aes.encrypt_rounds(st0, rounds=args.rounds)
+        work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = ks_inner.launches
@@ -80,13 +122,14 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    out = dict(card=card, profile=args.profile, rounds=args.rounds,
-               work_level=work, traced_wall_s=wall,
-               device_kernel_s=device_s,
+    out = dict(card=card, profile=args.profile, **desc,
+               traced_wall_s=wall, device_kernel_s=device_s,
                device_busy_share=device_s / wall if wall else None,
                ks_inner_s=ks_s, ks_inner_launches=launches,
                ks_inner_share_of_device=ks_s / device_s if device_s else None,
                top_kernels_s=[(k[:90], v / 1e6) for k, v in top])
+    if phase_run is not None:
+        out["bootstrap_phases"] = phase_run()
     print(json.dumps(out))
     return out
 

@@ -15,10 +15,20 @@ Phases, each announced on its own line; any failure exits non-zero:
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
      decrypted and held block by block against a plain AES oracle; the
      kernel's launch count over the run must equal the engine's key-switch
-     count.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Needs one CUDA card; imports
-nothing of JAX or of the reference package.
+     count;
+  5. flagship phase: the flagship's keygen (the bootstrap's Galois keys
+     shared into the round's set), 2048 random blocks (block 0 FIPS-197
+     C.1's plaintext) encrypted and dropped to the work level 15, then
+     FLAGSHIP_ROUNDS rounds with a pair-packed refresh (4 bootstraps)
+     before every round after the first (run_full_aes), every block held
+     against the AES oracle, block 0 against FIPS-197 C.1 after 10 rounds;
+     launches must equal key-switches here too;
+  6. the kernel against its plain version at the widest SlotToCoeff level
+     the flagship's bootstraps reached (read from their diagonal cache).
+The line before the last is a JSON object with one entry per kernel
+(launches summed over the slice and the flagship); the last line is
+{"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
+JAX or of the reference package.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from aesfhe_tpu_torch import kernels
+from aesfhe_tpu_torch import kernels, run_full_aes
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
 from aesfhe_tpu_torch.core.params import get_params
@@ -50,13 +60,20 @@ PROFILE = "prod_boot"
 # fails there alike: tests/test_torch_drift.py runs that round on
 # prod_boot's primes through both packages, residue for residue.
 ROUNDS = 2
+# The flagship runs all 10 rounds (36 bootstraps): on an H100 a steady
+# bootstrap takes ~2.8 s, so keygen and the 10 rounds need ~3 minutes and
+# the whole script stays well inside its 1200 s limit (PERF.md).
+FLAGSHIP_ROUNDS = 10
 SEED = 0
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")   # FIPS-197 C.1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -156,8 +173,11 @@ def main() -> int:
     work_level = AESFHE128Bitsliced.ROUND_DEPTH * ROUNDS + 1
     cases = [ks_inner_case(params, lvl, None, rng, dev)
              for lvl in (work_level - 1, 14, 3)]
-    ks_inner_case(params, 14, 17, rng, dev)
-    top = cases[0]
+    cases.append(ks_inner_case(params, 14, 17, rng, dev))
+    # the bootstrap's widest switch: CoeffToSlot's first group at the top
+    # of the chain (J = dnum digits, every q-prime and special prime)
+    top = ks_inner_case(params, params.top_level, None, rng, dev)
+    cases.append(top)
 
     phase("slice")
     t0 = time.perf_counter()
@@ -217,11 +237,79 @@ def main() -> int:
         raise AssertionError(f"ks_inner launched {launches} times for "
                              f"{counters['keyswitch']} key-switches")
 
+    slice_launches = launches
+    del wrap, aes, eng, st
+    torch.cuda.empty_cache()
+
+    phase("flagship")
+    torch.cuda.reset_peak_memory_stats()
+    aes, keygen_s = run_full_aes.setup(PROFILE, SEED, device="cuda")
+    wrap = aes.eng
+    bk = wrap.boot_key
+    print(f"keygen {keygen_s:.2f} s: relin + conj + "
+          f"{len(bk.rot.keys)} bootstrap Galois keys "
+          f"({run_full_aes.key_gib(bk.rot.keys.values()):.2f} GiB), "
+          f"{len(wrap.rot_key.keys)} rotation keys in the round's set after "
+          f"sharing; K={bk.K:.2f}, Chebyshev degree {bk.cheb_deg}, "
+          f"{bk.double_angles} double angle(s), hi_prec={bk.hi_prec}; "
+          f"CoeffToSlot groups {len(bk.cts_plan)}, SlotToCoeff groups "
+          f"{len(bk.stc_plan)}", flush=True)
+    state = run_full_aes.make_state(wrap.engine.slot_count, SEED + 1)
+    res = run_full_aes.run_flagship(aes, state, FLAGSHIP_ROUNDS)
+    flag_launches = res["ks_inner_launches"]
+    boot_s = res["bootstrap_s"]
+    print(f"{res['blocks']} blocks, {FLAGSHIP_ROUNDS} rounds from level "
+          f"{res['work_level']}: encrypt_state {res['encrypt_s']:.2f} s, "
+          f"rounds {res['wall_s']:.2f} s ({res['s_per_round']:.2f} s per "
+          f"round, {res['blocks_per_s']:.3f} blocks/s), round seconds "
+          f"{[round(x, 2) for x in res['round_s']]}", flush=True)
+    print(f"{len(boot_s)} bootstraps: first {res['first_bootstrap_s']:.2f} s "
+          f"(diagonal cache filled), steady median "
+          f"{res['steady_bootstrap_s']:.2f} s, all "
+          f"{[round(x, 2) for x in boot_s]}; diagonal stacks "
+          f"{res['diag_stacks']} ({res['diag_gib']:.2f} GiB), cache hits "
+          f"{res['diag_hits']}, misses {res['diag_misses']}", flush=True)
+    print(f"engine counters {res['counters']}; ks_inner launches "
+          f"{flag_launches}; max | |slot| - 1 | = {res['max_slot_err']:.3e}; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not res["exact"]:
+        raise AssertionError(f"{res['bad_bytes']} of {wrap.engine.slot_count}"
+                             f" bytes differ from AES-128 after "
+                             f"{FLAGSHIP_ROUNDS} rounds")
+    print(f"all {res['blocks']} blocks equal aes128_partial(block, key, "
+          f"{FLAGSHIP_ROUNDS})")
+    if FLAGSHIP_ROUNDS == 10:
+        if not res["fips_block0"]:
+            raise AssertionError("block 0 is not FIPS-197 C.1's ciphertext")
+        print("block 0 equals FIPS-197 C.1: 69c4e0d86a7b0430d8cdb78070b4c55a")
+    if res["bootstraps"] != 4 * (FLAGSHIP_ROUNDS - 1):
+        raise AssertionError(f"{res['bootstraps']} bootstraps for "
+                             f"{FLAGSHIP_ROUNDS} rounds")
+    if flag_launches <= 0 or flag_launches != res["keyswitches"]:
+        raise AssertionError(f"ks_inner launched {flag_launches} times for "
+                             f"{res['keyswitches']} key-switches")
+
+    phase("kernel at the bootstrap's levels")
+    levels = {}
+    for tag, _, lvl, _ in bk.diags:
+        side = "stc" if tag.startswith("fstc") else "cts"
+        levels[side] = max(levels.get(side, -1), lvl)
+    print(f"widest group entry levels: CoeffToSlot {levels['cts']}, "
+          f"SlotToCoeff {levels['stc']}", flush=True)
+    if levels["cts"] != params.top_level:
+        raise AssertionError(f"CoeffToSlot entered at {levels['cts']}, not "
+                             f"{params.top_level}")
+    cases.append(ks_inner_case(params, levels["stc"], None, rng, dev))
+
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [dict(
         name="ks_inner", route="cuda",
         source="aesfhe_tpu_torch/csrc/ks_inner.cu",
         replaces="aesfhe_tpu/core/pallas_ks.py:38",
-        launches=launches, max_abs_err=top["max_abs_err"], ms=top["ms"],
+        launches=slice_launches + flag_launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=top["ms"],
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by="bytes", library_ms=None)]}))
     print(card)

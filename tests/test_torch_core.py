@@ -189,6 +189,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'aesfhe_tpu' or m.startswith('aesfhe_tpu.')]\n"
         "assert not bad, bad\n"
+        "assert {'aesfhe_tpu_torch.bootstrap', 'aesfhe_tpu_torch.run_full_aes',"
+        " 'aesfhe_tpu_torch.profile_round'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('aesfhe_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
