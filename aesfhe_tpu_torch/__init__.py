@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the CKKS engine and the bit-sliced homomorphic
-AES-128 of `aesfhe_tpu`, written for one NVIDIA H100.
+"""PyTorch/CUDA port of the CKKS engine and the homomorphic AES-128 of
+`aesfhe_tpu` (the bit-sliced and the zeta nibble-pair pipelines), written
+for one NVIDIA H100.
 
 The JAX package stays the reference: every module here keeps its
 counterpart's name, and the port imports neither `jax` nor `aesfhe_tpu`.

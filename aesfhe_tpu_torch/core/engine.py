@@ -1,5 +1,5 @@
 """The CKKS Engine on torch.  Counterpart of `aesfhe_tpu/core/engine.py`
-(the part the bit-sliced AES path calls).
+(the part the AES pipelines and the bootstrap call).
 
 Scale/level policy as in the reference: every multiply relinearizes (when a
 relin key is given) and rescales, so `level` drops by one per depth; adds
@@ -580,6 +580,54 @@ class Engine:
         self._count("conjugate" if g == self.params.conj_galois_elt
                     else "rotate")
         return Ciphertext(self._galois_data(ct.data, g, key), ct.scale)
+
+    # ----- polynomial helpers -----------------------------------------
+    def make_power_basis(self, ct: Ciphertext, degree: int,
+                         relin_key: SwitchKey,
+                         normalize: bool = True) -> list[Ciphertext]:
+        """[ct^1, ..., ct^degree] (index i -> power i+1) from a binary-depth
+        ladder, ct^k = ct^(k//2) * ct^(k - k//2).
+
+        With normalize=True every power is brought to one common (level,
+        scale=Delta), so fused sums over the basis need no per-term scale
+        juggling: ladder depths divide by different primes, and the tracked
+        scales drift apart by ~q_i/q_j until one scalar multiply per power
+        squashes the drift."""
+        powers: dict[int, Ciphertext] = {1: ct}
+        for k in range(2, degree + 1):
+            lo = k // 2
+            powers[k] = self._mul_ct_ct(powers[lo], powers[k - lo], relin_key)
+        out = [powers[i] for i in range(1, degree + 1)]
+        if normalize and degree > 1:
+            target = self.params.scale
+            adjusted = []
+            for p in out:
+                if abs(p.scale - target) / target > _SCALE_TOL:
+                    p = self._adjust_scale(p, target)
+                adjusted.append(p)
+            lmin = min(p.level for p in adjusted)
+            out = [self._drop(p, lmin) for p in adjusted]
+        return out
+
+    def evaluate_polynomial(self, ct: Ciphertext, coeffs,
+                            relin_key: SwitchKey) -> Ciphertext:
+        """sum_k coeffs[k] * ct^k with complex coefficients, term by term
+        over a normalized power basis."""
+        coeffs = [complex(c) for c in np.asarray(coeffs).tolist()]
+        deg = len(coeffs) - 1
+        basis = self.make_power_basis(ct, deg, relin_key)
+        acc = None
+        for k in range(1, deg + 1):
+            c = coeffs[k]
+            if c == 0:
+                continue
+            term = self._mul_scalar(basis[k - 1], c, self.params.scale)
+            acc = term if acc is None else self.add(acc, term)
+        if acc is None:
+            acc = self._mul_scalar(ct, 0.0, self.params.scale)
+        if coeffs[0] != 0:
+            acc = self._add_scalar(acc, coeffs[0], acc.scale)
+        return acc
 
     def trivial_ct(self, val=1.0, level: int | None = None,
                    scale: float | None = None) -> Ciphertext:

@@ -1,10 +1,18 @@
-"""Homomorphic AES-128 on the bit-sliced pipeline.  Counterpart of
-`aesfhe_tpu/pipeline.py`'s AESFHE128Bitsliced (the zeta pipeline and
-per-round checkpointing are not ported yet).
+"""Homomorphic AES-128 over SIMD-packed blocks.  Counterpart of
+`aesfhe_tpu/pipeline.py` (per-round checkpointing is not ported yet).
 
-One middle round = AddRoundKey (1 level) + SubBytes (4) + ShiftRows (1) +
-MixColumns (4-5) + sign-cleanse (3) ~= 14 levels, so three rounds fit a
-fresh prod_boot ciphertext (54 levels) without a bootstrap.
+Two pipelines:
+  - AESFHE128, the zeta nibble-pair pipeline: a byte is the pair
+    (zeta16^hi, zeta16^lo); SubBytes and the GF multipliers are 16x16 2D
+    LUT pairs, XOR with the plaintext round key costs only plaintext
+    multiplies, and ShiftRows+MixColumns is one merged transform.  One
+    round is ~47 levels (ARK 5, SubBytes+cleanse 14, shift-mix 23, ARK 5).
+  - AESFHE128Bitsliced, on 8 +-1 bit planes: one middle round = AddRoundKey
+    (1 level) + SubBytes (4) + ShiftRows (1) + MixColumns (4-5) +
+    sign-cleanse (3) ~= 14 levels.
+
+One ciphertext (pair) packs slot_count/16 blocks, column-major per 16-slot
+block (2048 blocks at N=2^16).
 """
 from __future__ import annotations
 
@@ -12,10 +20,230 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .coeffs import generate as coeffgen
 from .core.ciphertext import Ciphertext
 from .keyexp import expand_key_128
 from .ops.bitplane import BitSliceService, BitState
-from .ops.xor_service import EngineWrapper
+from .ops.mixcolumns_service import AESFHETransformer, NibblePair
+from .ops.shiftrows_service import AESFHEShiftRows
+from .ops.xor_service import CoefficientCache, EngineWrapper, XORService
+from .ops.zeta import ZetaEncoder, split_nibbles
+from .utils.aes_utils import chunk_bytes, pkcs7_pad
+
+COEFF_DIR = coeffgen.COEFF_DIR
+
+
+class AESFHE128:
+    """AES-128 on zeta16 nibble pairs: ARK(rk0); rounds 1-9 [SubBytes,
+    ShiftRows+MixColumns, ARK]; round 10 [SubBytes, ShiftRows, ARK].
+
+    `refresh` (a Ciphertext -> Ciphertext rejuvenator, e.g.
+    EngineWrapper.bootstrap) runs before an op that would exhaust the chain.
+    `segment_refresh` moves the refreshes inside the round, between LUT
+    stages: a production bootstrap chain leaves ~19 levels after a refresh,
+    which holds one LUT stage but not a 14-23 level round segment."""
+
+    def __init__(self, eng_wrap: EngineWrapper, xor_svc: XORService,
+                 transformer: AESFHETransformer,
+                 shiftrows: AESFHEShiftRows,
+                 key: bytes | np.ndarray,
+                 refresh: Optional[Callable[[Ciphertext], Ciphertext]] = None):
+        self.eng = eng_wrap
+        self.xor = xor_svc
+        self.tf = transformer
+        self.sr = shiftrows
+        self.round_keys = expand_key_128(key)           # [11, 16]
+        self.refresh = refresh
+        # root-of-unity cleanses after each real refresh: a small ring's
+        # bootstrap leaves ~0.03 on the zeta16 circle and needs 4; a
+        # prod-shaped hi-precision chain refreshes at ~1e-3 and needs 2
+        self.post_boot_cleanses = self.POST_BOOT_CLEANSES
+        self.segment_refresh = False
+        self._sbox2d = (
+            CoefficientCache(COEFF_DIR / "sbox_hi2d_coeffs.json"),
+            CoefficientCache(COEFF_DIR / "sbox_lo2d_coeffs.json"))
+        self._inv_sbox2d = (
+            CoefficientCache(COEFF_DIR / "inv_sbox_hi2d_coeffs.json"),
+            CoefficientCache(COEFF_DIR / "inv_sbox_lo2d_coeffs.json"))
+
+    # ------------------------------------------------------------------
+    @property
+    def blocks_per_ct(self) -> int:
+        return self.eng.engine.slot_count // 16
+
+    def pack_blocks(self, data: bytes) -> tuple[np.ndarray, int]:
+        """PKCS#7-pad, chunk into 16-byte blocks, lay them out block after
+        block (column-major within a block is byte order)."""
+        blocks = chunk_bytes(pkcs7_pad(bytes(data)))
+        if len(blocks) > self.blocks_per_ct:
+            raise ValueError(f"{len(blocks)} blocks do not fit one "
+                             f"ciphertext of {self.blocks_per_ct}")
+        flat = np.zeros(self.eng.engine.slot_count, dtype=np.uint8)
+        for b, blk in enumerate(blocks):
+            flat[16 * b:16 * b + 16] = np.frombuffer(blk, dtype=np.uint8)
+        return flat, len(blocks)
+
+    def encrypt_state(self, state_bytes: np.ndarray) -> NibblePair:
+        hi, lo = split_nibbles(np.asarray(state_bytes, dtype=np.uint8))
+        return NibblePair(self.eng.encrypt(ZetaEncoder.to_zeta(hi, 16)),
+                          self.eng.encrypt(ZetaEncoder.to_zeta(lo, 16)))
+
+    def decrypt_state(self, pair: NibblePair) -> np.ndarray:
+        hi = ZetaEncoder.from_zeta(self.eng.decrypt(pair.hi), 16)
+        lo = ZetaEncoder.from_zeta(self.eng.decrypt(pair.lo), 16)
+        return (hi.astype(np.uint8) << 4) | lo.astype(np.uint8)
+
+    # ------------------------------------------------------------------
+    def _tile_key(self, rk: np.ndarray) -> np.ndarray:
+        return np.tile(rk, self.eng.engine.slot_count // 16)
+
+    def add_round_key(self, pair: NibblePair, round_idx: int) -> NibblePair:
+        k_hi, k_lo = split_nibbles(self._tile_key(self.round_keys[round_idx]))
+        return NibblePair(self.xor._xor_with_plain_nibbles(pair.hi, k_hi),
+                          self.xor._xor_with_plain_nibbles(pair.lo, k_lo))
+
+    def sub_bytes(self, pair: NibblePair, inverse: bool = False,
+                  cleanse: bool = True) -> NibblePair:
+        caches = self._inv_sbox2d if inverse else self._sbox2d
+        bases = (self.xor._build_power_basis(pair.hi),
+                 self.xor._build_power_basis(pair.lo))
+        hi = self.tf._bilinear(bases[0], bases[1], caches[0].load_coeffs())
+        lo = self.tf._bilinear(bases[0], bases[1], caches[1].load_coeffs())
+        if cleanse:
+            # squash accumulated noise before MixColumns' XOR tree
+            # amplifies it past the zeta16 decode margin
+            hi = self.xor.cleanse(hi)
+            lo = self.xor.cleanse(lo)
+        return NibblePair(hi, lo)
+
+    def shift_rows(self, pair: NibblePair, inverse: bool = False) -> NibblePair:
+        return NibblePair(self.sr.shift_rows_simd(pair.hi, inverse=inverse),
+                          self.sr.shift_rows_simd(pair.lo, inverse=inverse))
+
+    def shift_mix(self, pair: NibblePair, inverse: bool = False) -> NibblePair:
+        hook = self._refresh if self.segment_refresh else None
+        return self.tf.merged_shift_mix_pairs(pair, inverse=inverse,
+                                              refresh=hook)
+
+    # multiplicative depth of each round op (rescale units), measured per
+    # stage on the deep profile: ARK 48->43, SubBytes+cleanse 43->29,
+    # merged shift-mix 29->6; a refresh runs before an op would exhaust the
+    # chain
+    SUB_DEPTH = 14
+    MIX_DEPTH = 23
+    ARK_DEPTH = 5
+    CLEANSE_DEPTH = 6
+    ROUND_DEPTH = 2 * ARK_DEPTH + SUB_DEPTH + MIX_DEPTH      # 47
+    POST_BOOT_CLEANSES = 4
+    # per-stage need in segment-refresh mode: one 2D LUT stage is basis (3)
+    # + bilinear (2), with no margin (a looser trigger would refresh after
+    # every stage on a production chain)
+    SEG_STAGE_DEPTH = 5
+
+    def _refresh(self, pair: NibblePair, need: int) -> NibblePair:
+        """Refresh both nibbles if fewer than `need` depth units remain,
+        then cleanse post_boot_cleanses times.  In segment mode a state
+        with plenty of levels is cleansed at each stage boundary instead:
+        the in-round cleanses are gone there, and a fresh state descending
+        30+ levels before its first refresh would otherwise compound the
+        per-stage LUT gain (~30-100x) past the decode margin."""
+        if self.refresh is None:
+            return pair
+        r = self.eng.engine.params.rescale_primes
+
+        def one(ct):
+            if ct.level < need * r + 2:
+                ct = self.refresh(ct)
+                for _ in range(self.post_boot_cleanses):
+                    ct = self.xor.cleanse(ct)
+            elif self.segment_refresh and ct.level >= (need + 6) * r + 2:
+                ct = self.xor.cleanse(ct)
+            return ct
+
+        return NibblePair(one(pair.hi), one(pair.lo))
+
+    def _cleanse_input(self, pair: NibblePair) -> NibblePair:
+        """Cleanse the input once where the chain holds that on top of a
+        round (not on deep, whose 48 levels hold exactly one).  A fresh
+        public-key encryption's phase error grows ~N (its ternary mask is
+        dense): 1.7e-4 zeta16 steps at N=2^10, 1.7e-2 at N=2^16 on
+        prod_boot's primes, and the round's LUTs amplify that past the 0.5
+        decode margin (every byte wrong).  The reference has no such step;
+        one cleanse brings the error to ~1e-3 steps."""
+        if not self.input_cleanse_fits(min(pair.hi.level, pair.lo.level)):
+            return pair
+        return self.cleanse_pair(pair)
+
+    def input_cleanse_fits(self, level: int) -> bool:
+        """Whether a cleanse and one round fit above `level`."""
+        r = self.eng.engine.params.rescale_primes
+        return level >= (self.ROUND_DEPTH + self.CLEANSE_DEPTH) * r + 1
+
+    def cleanse_pair(self, pair: NibblePair) -> NibblePair:
+        return NibblePair(self.xor.cleanse(pair.hi), self.xor.cleanse(pair.lo))
+
+    # ------------------------------------------------------------------
+    def encrypt_rounds(self, pair: NibblePair, rounds: int = 10) -> NibblePair:
+        """ARK(rk0) then AES rounds 1..rounds (round 10 with plain
+        ShiftRows); rounds < 10 is a partial evaluation that equals
+        aes_tables.aes128_partial."""
+        seg = self.segment_refresh
+        pair = self.add_round_key(self._cleanse_input(pair), 0)
+        for r in range(1, rounds + 1):
+            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                 else self.SUB_DEPTH)
+            # in segment mode the refresh's cleanses replace the
+            # post-SubBytes cleanse (11 levels would not fit the budget)
+            pair = self.sub_bytes(pair, cleanse=not seg)
+            if r == 10:
+                pair = self.shift_rows(pair)
+            else:
+                if not seg:
+                    pair = self._refresh(pair, self.MIX_DEPTH)
+                pair = self.shift_mix(pair)
+            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                 else self.ARK_DEPTH)
+            pair = self.add_round_key(pair, r)
+        return pair
+
+    def decrypt_rounds(self, pair: NibblePair, rounds: int = 10) -> NibblePair:
+        """Inverse cipher: undo rounds `rounds`..1, then ARK(rk0).
+
+        The reference cleanses after the inverse SubBytes and nowhere else.
+        But the inverse MixColumns runs every term through a GF(9/11/13/14)
+        LUT pair and amplifies its input's phase error ~40-70x (the forward
+        transform ~35x: half its terms are x1), and the inverse S-box LUT
+        amplifies that further: in the reference's order one round from a
+        fresh encryption decodes 85 of 2048 bytes wrong on deep.  So here
+        the AddRoundKey output is cleansed before the inverse MixColumns,
+        and the inverse SubBytes runs without a cleanse (the same levels).
+        In segment mode the refreshes go between the stages as
+        encrypt_rounds places them."""
+        seg = self.segment_refresh
+        pair = self._cleanse_input(pair)
+        for r in range(rounds, 0, -1):
+            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg else
+                                 self.ARK_DEPTH + self.CLEANSE_DEPTH
+                                 + self.MIX_DEPTH)
+            pair = self.add_round_key(pair, r)
+            if not seg:
+                pair = self.cleanse_pair(pair)
+            if r == 10:
+                pair = self.shift_rows(pair, inverse=True)
+            else:
+                pair = self.shift_mix(pair, inverse=True)
+            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                 else self.SUB_DEPTH - self.CLEANSE_DEPTH)
+            pair = self.sub_bytes(pair, inverse=True, cleanse=False)
+        pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                             else self.ARK_DEPTH)
+        return self.add_round_key(pair, 0)
+
+    def encrypt_bytes(self, data: bytes, rounds: int = 10) -> bytes:
+        """Host bytes in, homomorphically AES-encrypted host bytes out."""
+        flat, nblocks = self.pack_blocks(data)
+        pair = self.encrypt_rounds(self.encrypt_state(flat), rounds=rounds)
+        return bytes(self.decrypt_state(pair)[:16 * nblocks])
 
 
 class AESFHE128Bitsliced:

@@ -1,8 +1,9 @@
-"""Where the time of the bit-sliced AES rounds, or of one refresh, goes on
-the card.
+"""Where the time of the bit-sliced AES rounds, of one refresh, or of one
+zeta round goes on the card.
 
     python -m aesfhe_tpu_torch.profile_round [--rounds 2] [--profile prod_boot]
     python -m aesfhe_tpu_torch.profile_round --refresh [--profile prod_boot]
+    python -m aesfhe_tpu_torch.profile_round --zeta [--profile prod_boot]
 
 Rounds: generates the key family from a seed, encrypts 2048 random blocks,
 drops them to the uniform work level ROUND_DEPTH * rounds + 1, runs the
@@ -15,6 +16,10 @@ refresh (4 bootstraps) untraced, which fills the diagonal cache, and a
 second one under torch.profiler; then one more bootstrap with the phase
 timer on (each phase waits for the card), for the seconds and exit level
 of each phase.
+
+`--zeta`: the nibble-pair pipeline (AESFHE128) with direct rotation keys
+for its merged ShiftRows+MixColumns, 2048 random blocks encrypted fresh,
+ARK(rk0) and round 1 once untraced and once under torch.profiler.
 
 Prints one JSON object: the traced wall time, the summed device kernel
 time and its share of the wall (the rest is the card idling on the host),
@@ -32,11 +37,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import run_full_aes
+from . import run_full_aes, zeta_trace
 from .core import ks_inner
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
-from .pipeline import AESFHE128Bitsliced
+from .pipeline import AESFHE128, AESFHE128Bitsliced
 
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
 
@@ -86,18 +91,33 @@ def _refresh_work(args):
                  phase_run=phase_run))
 
 
+def _zeta_work(args):
+    """(what to trace, its description) for one zeta round from fresh."""
+    wrap, (xs, tf, sr), _ = zeta_trace.setup(args.profile, args.seed,
+                                             "cuda", bootstrap=False)
+    aes = AESFHE128(wrap, xs, tf, sr, KEY)
+    state = np.random.default_rng(args.seed + 1).integers(
+        0, 256, wrap.engine.slot_count, dtype=np.uint8)
+    pair = aes.encrypt_state(state)
+    return (lambda: aes.encrypt_rounds(pair, rounds=1),
+            dict(zeta_rounds=1, input_level=pair.hi.level))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="prod_boot")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--refresh", action="store_true",
                     help="trace one warm pair-packed refresh instead")
+    ap.add_argument("--zeta", action="store_true",
+                    help="trace one zeta nibble-pair round instead")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
 
-    work, desc = (_refresh_work if args.refresh else _rounds_work)(args)
+    work, desc = (_zeta_work if args.zeta else _refresh_work if args.refresh
+                  else _rounds_work)(args)
     phase_run = desc.pop("phase_run", None)
     work()                                               # warm-up
     torch.cuda.synchronize()

@@ -24,9 +24,19 @@ Phases, each announced on its own line; any failure exits non-zero:
      against the AES oracle, block 0 against FIPS-197 C.1 after 10 rounds;
      launches must equal key-switches here too;
   6. the kernel against its plain version at the widest SlotToCoeff level
-     the flagship's bootstraps reached (read from their diagonal cache).
+     the flagship's bootstraps reached (read from their diagonal cache);
+  7. zeta phase: the nibble-pair pipeline (AESFHE128) at prod_boot: keygen
+     (relin, conj, the bootstrap key, and direct Galois keys for the merged
+     ShiftRows+MixColumns steps of both directions, so its rotations are
+     hoisted), then 2048 random blocks as one pair of zeta16 nibble
+     ciphertexts, encrypted fresh at level 54: the forward leg (ARK(rk0)
+     and round 1, no refresh) held against aes128_partial(block, key, 1),
+     and the inverse leg (decrypt_rounds on a fresh encryption of that
+     result, segment-refresh schedule with the bootstrap) held against the
+     plaintext; launches must equal key-switches in each leg.
 The line before the last is a JSON object with one entry per kernel
-(launches summed over the slice and the flagship); the last line is
+(launches summed over the slice, the flagship and the zeta legs); the last
+line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -42,13 +52,14 @@ import time
 import numpy as np
 import torch
 
-from aesfhe_tpu_torch import kernels, run_full_aes
+from aesfhe_tpu_torch import kernels, run_full_aes, zeta_trace
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
 from aesfhe_tpu_torch.core.params import get_params
 from aesfhe_tpu_torch.ops.bitplane import BitState
 from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
-from aesfhe_tpu_torch.pipeline import AESFHE128Bitsliced
+from aesfhe_tpu_torch.ops.zeta import phase_error, split_nibbles
+from aesfhe_tpu_torch.pipeline import AESFHE128, AESFHE128Bitsliced
 
 PROFILE = "prod_boot"
 # Rounds run from the uniform work level ROUND_DEPTH * ROUNDS + 1, as the
@@ -141,6 +152,95 @@ def ks_inner_case(params, level: int, key_cap, rng, dev):
           f"ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.0%} of bound)",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
+             want: np.ndarray) -> dict:
+    """One timed leg of the zeta phase from a fresh encryption of `start`:
+    CUDA-event time of `run(pair)`, counters and launches over it, every
+    byte against `want`, and the largest phase error of the two nibbles
+    (in zeta16 steps; a slot decodes right below 0.5)."""
+    wrap = aes.eng
+    eng = wrap.engine
+    blocks = len(start) // 16
+    pair = aes.encrypt_state(start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.reset_counters()
+    ks_inner.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    out = run(pair)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ks_inner.launches
+    counters = dict(eng.counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = aes.decrypt_state(out)
+    hi, lo = split_nibbles(want)
+    vals = [wrap.decrypt(out.hi), wrap.decrypt(out.lo)]
+    for v in vals:
+        if v.shape != (len(start),) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"zeta {name}: decrypted nibbles are not "
+                                 f"finite or mis-shaped")
+    err = max(phase_error(vals[0], hi), phase_error(vals[1], lo))
+    bad = int(np.sum(got != want))
+    s = ev0.elapsed_time(ev1) / 1e3
+    print(f"zeta {name}: {blocks} blocks in {s:.3f} s (CUDA events; host "
+          f"{wall:.3f} s) = {blocks / s:.1f} blocks/s; exit level "
+          f"{out.hi.level}, scale/Delta {out.hi.scale / eng.params.scale:.6f};"
+          f" max phase error {err:.3e} zeta16 steps; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"zeta {name}: engine counters {counters}; ks_inner launches "
+          f"{launches}; {counters['bootstrap']} bootstraps", flush=True)
+    if bad:
+        raise AssertionError(f"zeta {name}: {bad} of {len(start)} bytes "
+                             f"wrong")
+    if launches <= 0 or launches != counters["keyswitch"]:
+        raise AssertionError(f"zeta {name}: ks_inner launched {launches} "
+                             f"times for {counters['keyswitch']} "
+                             f"key-switches")
+    return dict(seconds=s, launches=launches, err=err)
+
+
+def zeta_phase() -> tuple[dict, dict]:
+    """Keygen and the two zeta legs at PROFILE; returns the legs' records."""
+    torch.cuda.reset_peak_memory_stats()
+    zwrap, (xs, tf, sr), keygen_s = zeta_trace.setup(PROFILE, SEED + 2,
+                                                     "cuda", bootstrap=True)
+    # forward: one round from the fresh state, no refresh; inverse: the
+    # prod-shaped segment-refresh schedule (refresh between LUT stages):
+    # without a refresh the inverse MixColumns and S-box LUTs amplify the
+    # N=2^16 noise past the decode margin (PERF.md)
+    zfwd = AESFHE128(zwrap, xs, tf, sr, KEY)
+    zinv = AESFHE128(zwrap, xs, tf, sr, KEY, refresh=zwrap.bootstrap)
+    zinv.segment_refresh = True
+    zinv.post_boot_cleanses = 2
+    steps = sorted(set(tf.rotation_steps()) |
+                   set(tf.rotation_steps(inverse=True)))
+    print(f"keygen {keygen_s:.2f} s: relin + conj + bootstrap key + "
+          f"{len(zwrap.rot_key.keys)} rotation keys "
+          f"({run_full_aes.key_gib(zwrap.rot_key.keys.values()):.2f} GiB; "
+          f"direct keys for the shift-mix steps {steps}); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    sc = zwrap.engine.slot_count
+    state = np.random.default_rng(SEED + 3).integers(0, 256, sc,
+                                                     dtype=np.uint8)
+    fwd_want = np.concatenate([aes128_partial(state[b:b + 16], KEY, 1)
+                               for b in range(0, sc, 16)])
+    fwd = zeta_leg(zfwd, "forward", state,
+                   lambda p: zfwd.encrypt_rounds(p, rounds=1), fwd_want)
+    print(f"all {sc // 16} blocks equal aes128_partial(block, key, 1)",
+          flush=True)
+    inv = zeta_leg(zinv, "inverse", fwd_want,
+                   lambda p: zinv.decrypt_rounds(p, rounds=1), state)
+    print(f"all {sc // 16} blocks decrypt back to their plaintext",
+          flush=True)
+    return fwd, inv
 
 
 def main() -> int:
@@ -302,13 +402,20 @@ def main() -> int:
                              f"{params.top_level}")
     cases.append(ks_inner_case(params, levels["stc"], None, rng, dev))
 
+    del aes, wrap, bk
+    torch.cuda.empty_cache()
+
+    phase("zeta")
+    fwd, inv = zeta_phase()
+    zeta_launches = fwd["launches"] + inv["launches"]
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [dict(
         name="ks_inner", route="cuda",
         source="aesfhe_tpu_torch/csrc/ks_inner.cu",
         replaces="aesfhe_tpu/core/pallas_ks.py:38",
-        launches=slice_launches + flag_launches,
+        launches=slice_launches + flag_launches + zeta_launches,
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=top["ms"],
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by="bytes", library_ms=None)]}))

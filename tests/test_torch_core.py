@@ -190,10 +190,32 @@ def test_port_imports_no_jax():
         " or m == 'aesfhe_tpu' or m.startswith('aesfhe_tpu.')]\n"
         "assert not bad, bad\n"
         "assert {'aesfhe_tpu_torch.bootstrap', 'aesfhe_tpu_torch.run_full_aes',"
-        " 'aesfhe_tpu_torch.profile_round'} <= set(sys.modules)\n"
+        " 'aesfhe_tpu_torch.profile_round', 'aesfhe_tpu_torch.__main__',"
+        " 'aesfhe_tpu_torch.coeffs.generate', 'aesfhe_tpu_torch.coeffs.cache',"
+        " 'aesfhe_tpu_torch.utils.aes_utils', 'aesfhe_tpu_torch.ops.zeta',"
+        " 'aesfhe_tpu_torch.ops.gf_service', 'aesfhe_tpu_torch.ops.sbox_service',"
+        " 'aesfhe_tpu_torch.ops.shiftrows_service',"
+        " 'aesfhe_tpu_torch.ops.mixcolumns_service',"
+        " 'aesfhe_tpu_torch.ops.round_service',"
+        " 'aesfhe_tpu_torch.ops.shift_mix_variants',"
+        " 'aesfhe_tpu_torch.zeta_trace'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('aesfhe_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_cli_demo_xor_needs_a_card_unless_told_cpu(capsys):
+    """`python -m aesfhe_tpu_torch demo-xor` runs on the card by default:
+    without one it raises; with --device cpu it runs and exits 0."""
+    from aesfhe_tpu_torch.__main__ import main
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["demo-xor"])
+    with pytest.raises(SystemExit) as done:
+        main(["demo-xor", "--profile", "tiny", "--device", "cpu"])
+    assert done.value.code == 0
+    assert "correct=True" in capsys.readouterr().out
