@@ -1,7 +1,8 @@
 """CKKS bootstrapping: ModRaise -> CoeffToSlot -> EvalMod -> SlotToCoeff.
-Counterpart of `aesfhe_tpu/bootstrap.py` (its factored eager path; the
-dense BSGS maps for slot counts < 8, the small flavor and the fused
-three-phase programs are not ported yet).
+Counterpart of `aesfhe_tpu/bootstrap.py`: the factored and the dense BSGS
+linear maps, both flavors (regular and small), the eager `bootstrap` and
+`FusedBootstrap`, which replays the whole bootstrap as one captured CUDA
+graph (the reference traces it into XLA programs).
 
   ModRaise     reinterpret the bottom-prime residues as integers over the
                full chain: decrypts to m + q0*I with |I| <~ sqrt(h)/2
@@ -36,14 +37,19 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .core import ks_inner as ks_inner_mod
 from .core import ops_impl
-from .core.ciphertext import Ciphertext
+from .core.ciphertext import Ciphertext, Plaintext
 from .core.keys import GaloisKeySet, gen_rotation_keys
 
 
 @dataclass
 class BootstrapKey:
+    small: bool = False
     rot: GaloisKeySet | None = None
+    # the dense BSGS split (factored=False): baby x giant = slot_count
+    baby: int = 0
+    giant: int = 0
     K: float = 0.0            # EvalMod input range |t| <= K
     cheb_deg: int = 31
     double_angles: int = 2
@@ -52,11 +58,13 @@ class BootstrapKey:
     prescale: float = 16.0
     # paired-prime (~2^54) CoeffToSlot + EvalMod (see the module docstring)
     hi_prec: bool = False
+    factored: bool = True
     hi_scale: float = float(2 ** 54)
     stc_plan: list = field(default_factory=list)
     cts_plan: list = field(default_factory=list)
-    # encoded diagonal stacks on the device, (tag, gamma, level, sc_key) ->
-    # int32 [entries, level+1, N], and how often a lookup hit or missed
+    # encoded diagonals on the device: factored stacks (tag, gamma, level,
+    # sc_key) -> int32 [entries, level+1, N], dense diagonals (tag, d,
+    # level) -> int32 [level+1, N]; and how often a lookup hit or missed
     diags: dict = field(default_factory=dict)
     diag_hits: int = 0
     diag_misses: int = 0
@@ -299,38 +307,51 @@ def eval_mod_scales(bk: BootstrapKey, q0: int, delta: float):
     return a_scale, b_shift, theta_max
 
 
-def create_bootstrap_key(engine, sk, rot: GaloisKeySet | None = None,
+def create_bootstrap_key(engine, sk, small: bool = False,
+                         factored: bool | None = None,
+                         rot: GaloisKeySet | None = None,
                          hi_prec: bool | None = None) -> BootstrapKey:
-    """The regular flavor's key: the factored plans and a Galois key per
-    plan step (generated from the engine's generator unless `rot` brings
-    them).  hi_prec defaults to the big rings (N >= 4096)."""
+    """A bootstrap key of either flavor (`small`: two double angles and a
+    lower Chebyshev degree) with a Galois key per rotation step, generated
+    from the engine's generator unless `rot` brings them: the steps depend
+    only on params, so the two flavors can share one set.  `factored`
+    (default: slot_count >= 8) picks the factored FFT-stage plans over the
+    dense BSGS maps; hi_prec defaults to the big rings (N >= 4096)."""
     params = engine.params
     if params.rescale_primes != 1:
         raise NotImplementedError(
             "bootstrap targets single-prime-rescale profiles")
-    if params.slot_count < 8:
-        raise NotImplementedError(
-            "the dense BSGS bootstrap (slot counts < 8) is not ported")
-    K, da, deg = _flavor_config(params, small=False)
+    sc = params.slot_count
+    if factored is None:
+        factored = sc >= 8
+    K, da, deg = _flavor_config(params, small)
     if hi_prec is None:
         hi_prec = params.n >= 4096
-    tl = params.top_level
-    hi_scale = float(params.q_primes[tl]) * float(params.q_primes[tl - 1])
-    stc_plan, cts_plan = build_factored_plans(params)
+    if factored:
+        tl = params.top_level
+        hi_scale = float(params.q_primes[tl]) * float(params.q_primes[tl - 1])
+        stc_plan, cts_plan = build_factored_plans(params)
+        if rot is None:
+            # CoeffToSlot and SlotToCoeff share one symmetric step set
+            steps = set()
+            for plan in stc_plan + cts_plan:
+                steps |= {s % sc for s in plan["baby_steps"]}
+                steps |= {s % sc for s in plan["giant_steps"]}
+            steps.discard(0)
+            rot = gen_rotation_keys(params, engine.tabs, sk, engine.rng,
+                                    sorted(steps))
+        return BootstrapKey(small=small, rot=rot, K=K, cheb_deg=deg,
+                            double_angles=da, factored=True,
+                            prescale=1.0 if hi_prec else 16.0,
+                            hi_prec=hi_prec, hi_scale=hi_scale,
+                            stc_plan=stc_plan, cts_plan=cts_plan)
+    baby, giant = _bsgs_split(sc)
     if rot is None:
-        # CoeffToSlot and SlotToCoeff share one symmetric step set
-        sc = params.slot_count
-        steps = set()
-        for plan in stc_plan + cts_plan:
-            steps |= {s % sc for s in plan["baby_steps"]}
-            steps |= {s % sc for s in plan["giant_steps"]}
-        steps.discard(0)
+        steps = set(range(1, baby)) | {g * baby for g in range(1, giant)}
         rot = gen_rotation_keys(params, engine.tabs, sk, engine.rng,
                                 sorted(steps))
-    return BootstrapKey(rot=rot, K=K, cheb_deg=deg, double_angles=da,
-                        prescale=1.0 if hi_prec else 16.0, hi_prec=hi_prec,
-                        hi_scale=hi_scale, stc_plan=stc_plan,
-                        cts_plan=cts_plan)
+    return BootstrapKey(small=small, rot=rot, baby=baby, giant=giant, K=K,
+                        cheb_deg=deg, double_angles=da, factored=False)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +363,39 @@ def _mod_raise(engine, ct: Ciphertext) -> Ciphertext:
     data0 = ops_impl.ct_drop_to(engine.params, ct.data, 0)
     return Ciphertext(ops_impl.mod_raise_core(engine.params, engine.tabs,
                                               data0), ct.scale)
+
+
+def _apply_linear_map(engine, ct: Ciphertext, diag_fn, tag: str,
+                      bk: BootstrapKey) -> Ciphertext:
+    """out_slots = M @ in_slots, diag_fn(d) -> complex [sc] diagonal
+    diag_d[k] = M[k, (k-d) mod sc], by BSGS: the babies rot(ct, b) share
+    one digit decomposition; per giant g one plaintext multiply-accumulate
+    of the diagonals pre-rolled by -gB, then one rotation by gB."""
+    params = engine.params
+    B, G = bk.baby, bk.giant
+    babies = engine.hoisted_rotations(ct, bk.rot, list(range(B)))
+    out = None
+    for g in range(G):
+        acc = None
+        for b in range(B):
+            d = g * B + b
+            lvl = babies[b].level
+            key = (tag, d, lvl)
+            pt = bk.diags.get(key)
+            if pt is None:
+                bk.diag_misses += 1
+                pt = engine.encode(np.roll(diag_fn(d), -g * B),
+                                   level=lvl).data
+                bk.diags[key] = pt
+            else:
+                bk.diag_hits += 1
+            term = engine.multiply_plain(babies[b],
+                                         Plaintext(pt, params.scale))
+            acc = term if acc is None else engine.add(acc, term)
+        if g:
+            acc = engine.rotate(acc, bk.rot, g * B)
+        out = acc if out is None else engine.add(out, acc)
+    return out
 
 
 def _apply_group(engine, ct: Ciphertext, plan: dict, tag: str,
@@ -613,17 +667,165 @@ def bootstrap(engine, ct: Ciphertext, relin_key, conj_key,
         raise NotImplementedError(
             "bootstrap keys missing: create them with "
             "engine.create_bootstrap_key(sk) on a bootstrappable profile")
+    params = engine.params
     engine._count("bootstrap")
     pt = _PhaseTimer(engine, phases)
-    q0 = int(engine.params.q_primes[0])
+    q0 = int(params.q_primes[0])
     raised = _mod_raise(engine, ct)
     pt.mark("mod_raise", raised)
-    ct_a, ct_b = _boot_front(engine, ct, raised, conj_key, bootstrap_key, pt)
+    if bootstrap_key.factored:
+        ct_a, ct_b = _boot_front(engine, ct, raised, conj_key, bootstrap_key,
+                                 pt)
+        m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0, ct.scale)
+        pt.mark("evalmod_a", m_a)
+        # the *i of the half-recombine folds into EvalMod's final constant
+        # (an exact zeta4 multiply in _boot_back when hi)
+        m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale,
+                        final_mult=1j)
+        pt.mark("evalmod_b", m_b)
+        return _boot_back(engine, m_a, m_b, bootstrap_key, ct.scale, pt)
+    # dense: two maps per direction over the closed-form diagonals
+    half = params.slot_count
+    a_scale, _, _ = eval_mod_scales(bootstrap_key, q0, ct.scale)
+    raised = engine.multiply(raised, a_scale)
+    f_a, f_b = _cts_diag(params, half)
+    w_a = _apply_linear_map(engine, raised, f_a, "cts_a", bootstrap_key)
+    w_b = _apply_linear_map(engine, raised, f_b, "cts_b", bootstrap_key)
+    ct_a = engine.add(w_a, engine.conjugate(w_a, conj_key))
+    ct_b = engine.add(w_b, engine.conjugate(w_b, conj_key))
     m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0, ct.scale)
-    pt.mark("evalmod_a", m_a)
-    # the *i of the half-recombine folds into EvalMod's final constant
-    # (an exact zeta4 multiply in _boot_back when hi)
-    m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale,
-                    final_mult=1j)
-    pt.mark("evalmod_b", m_b)
-    return _boot_back(engine, m_a, m_b, bootstrap_key, ct.scale, pt)
+    m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale)
+    e_a, e_b = _stc_diag(params, half)
+    return engine.add(
+        _apply_linear_map(engine, m_a, e_a, "stc_a", bootstrap_key),
+        _apply_linear_map(engine, m_b, e_b, "stc_b", bootstrap_key))
+
+
+class FusedBootstrap:
+    """The whole bootstrap at one input signature (level, scale), replayed
+    as one captured CUDA graph, so no eager op of it (138 key-switches
+    among them at prod_boot) waits on the host's dispatch.  Counterpart of
+    the reference's FusedBootstrap, which traces the same phases into XLA
+    programs.
+
+    On a CUDA device the constructor bootstraps `sample_ct` eagerly (the
+    warm-up: it fills every lazy device cache the bootstrap reads -- the
+    diagonal stacks, the row tables and constants, the Galois permutations,
+    the scalar encodings, the kernel's row vectors), keeps that result in
+    `warm_out`, then captures the bootstrap from a static input buffer into
+    one graph.  A capture that would upload, or that grows any cache, raises:
+    nothing falls back to the eager path.  The engine counters and
+    ks_inner.launches tick once during the capture, when nothing runs; they
+    are put back, and every replay adds the capture's deltas.  The instance
+    holds every tensor the graph reads, since a graph keeps raw pointers.
+
+    On the CPU nothing is captured: __call__ runs the eager bootstrap at the
+    static input scale, so the signature checks and the tracked output scale
+    are the same as the card's."""
+
+    def __init__(self, engine, relin_key, conj_key, bk: BootstrapKey,
+                 sample_ct: Ciphertext):
+        if not bk.factored:
+            raise NotImplementedError("FusedBootstrap needs the factored "
+                                      "transform path")
+        self.engine = engine
+        self.relin_key = relin_key
+        self.conj_key = conj_key
+        self.bk = bk
+        self.in_level = sample_ct.level
+        self.in_scale = float(sample_ct.scale)
+        self.out_scale: float | None = None
+        self.warm_out: Ciphertext | None = None
+        self.graph = None
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.deltas: dict = {}
+        if sample_ct.data.is_cuda:
+            self._capture(sample_ct)
+
+    def _run(self, data) -> Ciphertext:
+        return bootstrap(self.engine, Ciphertext(data, self.in_scale),
+                         self.relin_key, self.conj_key, self.bk)
+
+    def _caches(self) -> dict:
+        eng = self.engine
+        return dict(diags=self.bk.diags, rows=eng.tabs._rows,
+                    consts=eng.tabs._consts, perms=eng._perm_cache,
+                    scalars=eng._consts_cache, trivial=eng._trivial_cache,
+                    ks_rows=ks_inner_mod._rows_dev)
+
+    def _tally(self) -> dict:
+        t = dict(self.engine.counters)
+        t["ks_inner_launches"] = ks_inner_mod.launches
+        t["diag_hits"] = self.bk.diag_hits
+        return t
+
+    def _add(self, deltas: dict):
+        for k, v in deltas.items():
+            if k == "ks_inner_launches":
+                ks_inner_mod.launches += v
+            elif k == "diag_hits":
+                self.bk.diag_hits += v
+            else:
+                self.engine.counters[k] += v
+
+    def _capture(self, sample_ct: Ciphertext):
+        dev = sample_ct.data.device
+        self.warm_out = self._run(sample_ct.data)
+        self.out_scale = float(self.warm_out.scale)
+        torch.cuda.synchronize(dev)
+        sizes = {k: len(c) for k, c in self._caches().items()}
+        before = self._tally()
+        t0 = time.perf_counter()
+        self._static_in = sample_ct.data.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            # entering the capture empties the allocator's cache, so the
+            # pool's size is the growth from here
+            reserved = torch.cuda.memory_reserved(dev)
+            out = self._run(self._static_in)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        after = self._tally()
+        self.deltas = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+        self._add({k: -v for k, v in self.deltas.items()})
+        grown = {k: (sizes[k], len(c)) for k, c in self._caches().items()
+                 if len(c) != sizes[k]}
+        if grown:
+            raise RuntimeError(f"FusedBootstrap: caches grew during the "
+                               f"capture (before, after): {grown}")
+        if float(out.scale) != self.out_scale:
+            raise RuntimeError("FusedBootstrap: the captured bootstrap "
+                               "tracks another output scale than the eager "
+                               "warm-up")
+        self._static_out = out.data
+        # the graph reads these by raw pointer: keep them alive as long as
+        # it lives, whatever the bounded caches evict later
+        self._held = [list(c.values()) for c in self._caches().values()]
+        self.graph = graph
+
+    def __call__(self, ct: Ciphertext) -> Ciphertext:
+        if ct.level != self.in_level:
+            raise ValueError(
+                f"fused bootstrap built for input level {self.in_level}, "
+                f"got {ct.level}")
+        if abs(ct.scale - self.in_scale) / self.in_scale > 1e-7:
+            raise ValueError(
+                f"fused bootstrap built for input scale {self.in_scale}, "
+                f"got {ct.scale}")
+        if self.graph is None:
+            out = self._run(ct.data)
+            if self.out_scale is None:
+                self.out_scale = float(out.scale)
+            return Ciphertext(out.data, self.out_scale)
+        if ct.data.shape != self._static_in.shape:
+            raise ValueError(f"fused bootstrap built for data of shape "
+                             f"{tuple(self._static_in.shape)}, got "
+                             f"{tuple(ct.data.shape)}")
+        self._static_in.copy_(ct.data)
+        self.graph.replay()
+        self._add(self.deltas)
+        # the next replay overwrites the static output
+        return Ciphertext(self._static_out.clone(), self.out_scale)

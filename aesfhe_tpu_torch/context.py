@@ -1,6 +1,5 @@
 """EngineContext: key ownership + ergonomic encrypt/decrypt.  Counterpart
-of `aesfhe_tpu/context.py` without the device mesh and the small bootstrap
-flavor.
+of `aesfhe_tpu/context.py` without the device mesh.
 """
 from __future__ import annotations
 
@@ -20,7 +19,8 @@ class EngineContext:
     sequence (possibly empty) generates only those steps, and services add
     the steps they need through EngineWrapper.ensure_rotation_steps.
     `use_bootstrap` also generates the bootstrap key (its Galois keys
-    last, as the reference draws them)."""
+    last, as the reference draws them) and the small flavor's key, which
+    shares its Galois key set."""
 
     def __init__(self, *, params: CKKSParams | None = None,
                  profile: str | None = None, device="cuda",
@@ -41,8 +41,11 @@ class EngineContext:
                 self.secret_key, list(rotation_steps))
         else:
             self.rotation_key = GaloisKeySet(keys={})
-        self.bootstrap_key = (eng.create_bootstrap_key(self.secret_key)
-                              if use_bootstrap else None)
+        self.bootstrap_key = self.small_bootstrap_key = None
+        if use_bootstrap:
+            self.bootstrap_key = eng.create_bootstrap_key(self.secret_key)
+            self.small_bootstrap_key = eng.create_small_bootstrap_key(
+                self.secret_key, rot=self.bootstrap_key.rot)
 
     @classmethod
     def from_keys(cls, engine: Engine, *, secret, public, relin, conj,
@@ -56,7 +59,7 @@ class EngineContext:
         ctx.relinearization_key = relin
         ctx.conjugation_key = conj
         ctx.rotation_key = rotation
-        ctx.bootstrap_key = None
+        ctx.bootstrap_key = ctx.small_bootstrap_key = None
         return ctx
 
     def encrypt(self, data):

@@ -186,10 +186,17 @@ class Engine:
         return keys_mod.gen_rotation_keys(self.params, self.tabs, sk,
                                           self.rng, list(steps))
 
+    def create_small_bootstrap_key(self, sk: SecretKey, rot=None,
+                                   hi_prec: bool | None = None):
+        from .. import bootstrap as _bs
+        return _bs.create_bootstrap_key(self, sk, small=True, rot=rot,
+                                        hi_prec=hi_prec)
+
     def create_bootstrap_key(self, sk: SecretKey, rot=None,
                              hi_prec: bool | None = None):
         from .. import bootstrap as _bs
-        return _bs.create_bootstrap_key(self, sk, rot=rot, hi_prec=hi_prec)
+        return _bs.create_bootstrap_key(self, sk, small=False, rot=rot,
+                                        hi_prec=hi_prec)
 
     # ----- encode / encrypt / decrypt ---------------------------------
     def encode(self, vec, level: int | None = None,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bootstrap import BootstrapKey, build_factored_plans
+from .bootstrap import BootstrapKey, _bsgs_split, build_factored_plans
 from .core.ciphertext import Ciphertext
 from .core.engine import resolve_device
 from .core.keys import GaloisKeySet, PublicKey, SecretKey, SwitchKey
@@ -63,16 +63,21 @@ def galois_keys(keys: dict, device="cuda") -> GaloisKeySet:
 
 def bootstrap_key(params, keys: dict, *, K: float, cheb_deg: int,
                   double_angles: int, prescale: float, hi_prec: bool,
-                  hi_scale: float, device="cuda") -> BootstrapKey:
+                  hi_scale: float, small: bool = False,
+                  factored: bool = True, device="cuda") -> BootstrapKey:
     """A bootstrap key from the reference's Galois keys ({galois element:
-    (b, a, cap)}) and scalar fields; the plans are rebuilt from `params`."""
+    (b, a, cap)}) and scalar fields; the factored plans or the dense BSGS
+    split are rebuilt from `params`."""
+    rot = galois_keys(keys, device)
+    common = dict(small=bool(small), rot=rot, K=float(K),
+                  cheb_deg=int(cheb_deg), double_angles=int(double_angles),
+                  prescale=float(prescale), hi_prec=bool(hi_prec),
+                  hi_scale=float(hi_scale), factored=bool(factored))
+    if not factored:
+        baby, giant = _bsgs_split(params.slot_count)
+        return BootstrapKey(baby=baby, giant=giant, **common)
     stc_plan, cts_plan = build_factored_plans(params)
-    return BootstrapKey(rot=galois_keys(keys, device), K=float(K),
-                        cheb_deg=int(cheb_deg),
-                        double_angles=int(double_angles),
-                        prescale=float(prescale), hi_prec=bool(hi_prec),
-                        hi_scale=float(hi_scale), stc_plan=stc_plan,
-                        cts_plan=cts_plan)
+    return BootstrapKey(stc_plan=stc_plan, cts_plan=cts_plan, **common)
 
 
 def switch_key_arrays(key: SwitchKey) -> tuple[np.ndarray, np.ndarray,

@@ -30,11 +30,13 @@ class XORConfig:
     """Engine configuration: ring profile (or explicit params), device, the
     rotation keys generated up front (None -> power-of-two ladder; a
     sequence, possibly empty -> only those steps), whether to generate the
-    bootstrap key, and the coefficient files of the XOR service."""
+    bootstrap key, whether EngineWrapper.bootstrap replays the fused
+    bootstrap (`fused_boot`; the reference's AESFHE_FUSED_BOOT, off by
+    default as there), and the coefficient files of the XOR service."""
 
     def __init__(self, profile: str | None = None, params=None,
                  rotation_steps=None, device="cuda",
-                 use_bootstrap: bool = False,
+                 use_bootstrap: bool = False, fused_boot: bool = False,
                  coeffs_path: Path = COEFF_DIR / "xor_mono_coeffs.json",
                  nibble_hi_path: Path = COEFF_DIR / "nibble_hi16_coeffs.json",
                  nibble_lo_path: Path = COEFF_DIR / "nibble_test.json",
@@ -50,6 +52,7 @@ class XORConfig:
         self.rotation_steps = rotation_steps
         self.device = device
         self.use_bootstrap = use_bootstrap
+        self.fused_boot = fused_boot
 
 
 class EngineWrapper:
@@ -72,6 +75,9 @@ class EngineWrapper:
         self.conj_key = ctx.conjugation_key
         self.rot_key = ctx.rotation_key
         self.boot_key = ctx.bootstrap_key
+        self.fused_boot = config.fused_boot
+        # FusedBootstrap instances by input-scale bucket (see _bootstrap_fused)
+        self.fused_instances: dict = {}
 
     def encrypt(self, data, device: bool = False):
         return self.engine.encrypt(np.asarray(data), self.public_key,
@@ -107,9 +113,34 @@ class EngineWrapper:
         return self.engine.rotate(ct, self.rot_key, steps)
 
     def bootstrap(self, ct, phases: list | None = None):
-        """Refresh `ct` with the context's bootstrap key (eager path)."""
+        """Refresh `ct` with the context's bootstrap key: a replay of the
+        fused bootstrap when the config asks for it, else the eager path
+        (the only one the phase timer of `phases` can time)."""
+        if self.fused_boot:
+            if phases is not None:
+                raise ValueError("the phase timer needs the eager bootstrap")
+            return self._bootstrap_fused(ct)
         return self.engine.bootstrap(ct, self.relin_key, self.conj_key,
                                      self.boot_key, phases=phases)
+
+    def _bootstrap_fused(self, ct):
+        """Drop to level 0 first (ModRaise reads only the bottom prime), so
+        one FusedBootstrap serves every input level; one instance per input
+        scale, bucketed at 1e-4 in log2.  A new instance bootstraps its first
+        input eagerly while it captures (FusedBootstrap.warm_out), so that
+        input is not bootstrapped twice."""
+        from ..bootstrap import FusedBootstrap
+        ct = self.engine._drop(ct, 0)
+        key = round(float(np.log2(ct.scale)) * 1e4)
+        inst = self.fused_instances.get(key)
+        if inst is None:
+            inst = FusedBootstrap(self.engine, self.relin_key, self.conj_key,
+                                  self.boot_key, ct)
+            self.fused_instances[key] = inst
+            if inst.warm_out is not None:
+                out, inst.warm_out = inst.warm_out, None
+                return out
+        return inst(ct)
 
     def relinearize(self, ct, relin_key=None):
         # degree-2 only; a degree-1 input comes back unchanged

@@ -1,5 +1,5 @@
 """Homomorphic AES-128 over SIMD-packed blocks.  Counterpart of
-`aesfhe_tpu/pipeline.py` (per-round checkpointing is not ported yet).
+`aesfhe_tpu/pipeline.py`.
 
 Two pipelines:
   - AESFHE128, the zeta nibble-pair pipeline: a byte is the pair
@@ -16,6 +16,10 @@ block (2048 blocks at N=2^16).
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,6 +33,8 @@ from .ops.shiftrows_service import AESFHEShiftRows
 from .ops.xor_service import CoefficientCache, EngineWrapper, XORService
 from .ops.zeta import ZetaEncoder, split_nibbles
 from .utils.aes_utils import chunk_bytes, pkcs7_pad
+from .utils.serialization import (load_ciphertext, params_fingerprint,
+                                  save_ciphertext)
 
 COEFF_DIR = coeffgen.COEFF_DIR
 
@@ -282,13 +288,22 @@ class AESFHE128Bitsliced:
             out[p + 1] = eng.linear_combination([z, zc], [-0.5j, 0.5j])
         return self.svc.cleanse(BitState(out))
 
-    def encrypt_rounds(self, st: BitState, rounds: int = 10) -> BitState:
+    def encrypt_rounds(self, st: BitState, rounds: int = 10,
+                       checkpoint_dir: str | Path | None = None) -> BitState:
         """FIPS-197 order: ARK(rk_{r-1}) + SubBytes + ShiftRows (+MixColumns
         and cleanse) per round; round 10 folds ARK(rk10) into the ShiftRows
         masks.  A partial run (rounds < 10) closes with ARK(rk_rounds), so
-        it matches aes_tables.aes128_partial."""
+        it matches aes_tables.aes128_partial.
+
+        `checkpoint_dir` saves the 8 plane ciphertexts after each round and,
+        on re-entry, resumes after the deepest saved round <= `rounds`."""
         svc = self.svc
-        for r in range(1, rounds + 1):
+        start = 1
+        if checkpoint_dir:
+            saved, done = self._load_checkpoint(checkpoint_dir, rounds)
+            if done:
+                st, start = saved, done + 1
+        for r in range(start, rounds + 1):
             st = self._refresh(st, self.ROUND_DEPTH)
             st = svc.xor_plain(st, self.round_keys[r - 1])
             st = svc.sub_bytes(st)
@@ -298,9 +313,75 @@ class AESFHE128Bitsliced:
                 st = svc.shift_rows(st)
                 st = svc.mix_columns(st)
                 st = svc.cleanse(st)
+            if checkpoint_dir:
+                self._save_checkpoint(checkpoint_dir, r, st)
         if rounds < 10:
             st = svc.xor_plain(st, self.round_keys[rounds])
         return st
+
+    # -- per-round checkpoint / resume ------------------------------------
+    @staticmethod
+    def _ckpt_path(checkpoint_dir, r: int, k: int) -> Path:
+        return Path(checkpoint_dir) / f"round{r:02d}_plane{k}.npz"
+
+    def _run_digest(self) -> str:
+        """Binds a checkpoint directory to this evaluation: the params'
+        fingerprint and the expanded round keys (the reference's digest)."""
+        h = hashlib.sha256()
+        h.update(params_fingerprint(self.eng.engine.params).encode())
+        for rk in self.round_keys:
+            h.update(bytes(np.asarray(rk, dtype=np.uint8)))
+        return h.hexdigest()[:16]
+
+    def _save_checkpoint(self, checkpoint_dir, r: int, st: BitState):
+        """Each plane written to a temporary file and renamed into place,
+        the round's marker last: a crash mid-save never leaves a round that
+        looks resumable."""
+        d = Path(checkpoint_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        manifest = d / "manifest.json"
+        if not manifest.exists():
+            tmp = manifest.with_suffix(".tmp")
+            tmp.write_text(json.dumps({"digest": self._run_digest()}))
+            os.replace(tmp, manifest)
+        for k, ct in enumerate(st.bits):
+            path = self._ckpt_path(d, r, k)
+            # the temporary keeps the .npz suffix, or np.savez appends one
+            tmp = path.with_name("tmp_" + path.name)
+            save_ciphertext(tmp, ct)
+            os.replace(tmp, path)
+        marker = d / f"round{r:02d}.complete"
+        tmp = marker.with_suffix(".tmp")
+        tmp.write_text("ok")
+        os.replace(tmp, marker)
+
+    def _load_checkpoint(self, checkpoint_dir, max_round: int):
+        """(state, round) of the deepest complete round <= max_round, or
+        (None, 0).  Refuses a directory whose manifest belongs to another
+        run (AES key or params differ) or that has planes but no manifest."""
+        d = Path(checkpoint_dir)
+        manifest = d / "manifest.json"
+        if not manifest.exists():
+            if any(d.glob("round*_plane*.npz")):
+                raise RuntimeError(
+                    f"checkpoint dir {d} has round files but no manifest; "
+                    "refusing to resume unverifiable state")
+            return None, 0
+        digest = json.loads(manifest.read_text()).get("digest")
+        if digest != self._run_digest():
+            raise RuntimeError(
+                f"checkpoint dir {d} belongs to a different run (manifest "
+                "digest mismatch: AES key or params differ); use a fresh "
+                "checkpoint_dir")
+        dev = self.eng.engine.device
+        for r in range(max_round, 0, -1):
+            if not (d / f"round{r:02d}.complete").exists():
+                continue
+            paths = [self._ckpt_path(d, r, k) for k in range(8)]
+            if all(p.exists() for p in paths):
+                return BitState([load_ciphertext(p, device=dev)
+                                 for p in paths]), r
+        return None, 0
 
     def decrypt_rounds(self, st: BitState, rounds: int = 10) -> BitState:
         """Inverse cipher: undo rounds `rounds`..1, then ARK(rk0)."""

@@ -4,13 +4,17 @@ Counterpart of `scripts/run_full_aes.py`.
 
     python3 -m aesfhe_tpu_torch.run_full_aes [--rounds 10] [--profile prod_boot]
                                              [--seed 0] [--device cuda]
+                                             [--boot fused|eager]
 
 Keygen (the round's key family, the bootstrap's Galois keys shared into the
 round's rotation set), 2048 blocks at prod_boot (slot_count / 16; block 0 is
 FIPS-197 C.1's plaintext, the rest random from the seed), encrypt, drop to
 the uniform work level ROUND_DEPTH + 1 = 15, then the rounds: round 1 runs
 on the fresh (exact) state, every later round after a refresh of the eight
-planes as four pair-packed bootstraps.  The result decrypts to
+planes as four pair-packed bootstraps.  The bootstraps replay the fused
+bootstrap (one CUDA graph per input signature, captured at the first
+refresh, as the reference's flagship sets AESFHE_FUSED_BOOT=1) unless
+`--boot eager` asks for the eager one.  The result decrypts to
 aes128_partial(block, key, rounds) for every block, and with 10 rounds block
 0 equals FIPS-197 C.1's ciphertext.  Prints one JSON line (blocks/s, s per
 round, s per bootstrap, counters, peak device memory); writes no file.
@@ -49,13 +53,15 @@ def make_state(slot_count: int, seed: int) -> np.ndarray:
     return state
 
 
-def setup(profile: str, seed: int, device="cuda"):
+def setup(profile: str, seed: int, device="cuda", fused_boot: bool = True):
     """(AES pipeline with bootstrap refresh, keygen seconds): the key
     family and bootstrap key from `seed`, the bootstrap's Galois keys shared
-    with the round's rotation set before the round services add theirs."""
+    with the round's rotation set before the round services add theirs;
+    the refresh replays the fused bootstrap unless fused_boot is False."""
     t0 = time.perf_counter()
     wrap = EngineWrapper(XORConfig(profile=profile, rotation_steps=(),
-                                   device=device, use_bootstrap=True),
+                                   device=device, use_bootstrap=True,
+                                   fused_boot=fused_boot),
                          rng=np.random.default_rng(seed))
     wrap.rot_key.keys.update(wrap.boot_key.rot.keys)
     aes = AESFHE128Bitsliced(wrap, FIPS_KEY, refresh=wrap.bootstrap)
@@ -161,6 +167,11 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
         diag_stacks=len(bk.diags), diag_hits=bk.diag_hits,
         diag_misses=bk.diag_misses,
         diag_gib=sum(t.numel() for t in bk.diags.values()) * 4 / 2 ** 30,
+        fused_boot=wrap.fused_boot,
+        graphs=[dict(in_level=f.in_level, in_scale=f.in_scale,
+                     capture_s=f.capture_s, pool_gib=f.pool_bytes / 2 ** 30,
+                     per_replay=f.deltas)
+                for f in wrap.fused_instances.values()],
         max_slot_err=worst,
         bad_bytes=int(np.sum(got != want)),
         exact=bool(np.array_equal(got, want)))
@@ -175,11 +186,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--boot", choices=("fused", "eager"), default="fused",
+                    help="replay the captured bootstrap (fused) or run it "
+                         "op by op (eager)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    aes, keygen_s = setup(args.profile, args.seed, args.device)
+    aes, keygen_s = setup(args.profile, args.seed, args.device,
+                          fused_boot=args.boot == "fused")
     wrap = aes.eng
     state = make_state(wrap.engine.slot_count, args.seed + 1)
     res = run_flagship(aes, state, args.rounds)

@@ -20,12 +20,19 @@ Phases, each announced on its own line; any failure exits non-zero:
      shared into the round's set), 2048 random blocks (block 0 FIPS-197
      C.1's plaintext) encrypted and dropped to the work level 15, then
      FLAGSHIP_ROUNDS rounds with a pair-packed refresh (4 bootstraps)
-     before every round after the first (run_full_aes), every block held
-     against the AES oracle, block 0 against FIPS-197 C.1 after 10 rounds;
-     launches must equal key-switches here too;
-  6. the kernel against its plain version at the widest SlotToCoeff level
+     before every round after the first (run_full_aes), each bootstrap a
+     replay of the fused bootstrap's CUDA graph (captured at the first
+     refresh, as the reference's flagship runs its fused bootstrap), every
+     block held against the AES oracle, block 0 against FIPS-197 C.1 after
+     10 rounds; launches (the replays' included) must equal key-switches
+     here too;
+  6. fused bootstrap phase: at the flagship's keys, one graph captured
+     anew from the last refresh's first input, replayed on that refresh's
+     4 inputs, each replay equal bit for bit to the eager bootstrap of the
+     same input; capture, eager and replay seconds, the graph pool;
+  7. the kernel against its plain version at the widest SlotToCoeff level
      the flagship's bootstraps reached (read from their diagonal cache);
-  7. zeta phase: the nibble-pair pipeline (AESFHE128) at prod_boot: keygen
+  8. zeta phase: the nibble-pair pipeline (AESFHE128) at prod_boot: keygen
      (relin, conj, the bootstrap key, and direct Galois keys for the merged
      ShiftRows+MixColumns steps of both directions, so its rotations are
      hoisted), then 2048 random blocks as one pair of zeta16 nibble
@@ -52,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from aesfhe_tpu_torch import kernels, run_full_aes, zeta_trace
+from aesfhe_tpu_torch import bootstrap, kernels, run_full_aes, zeta_trace
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
 from aesfhe_tpu_torch.core.params import get_params
@@ -152,6 +159,69 @@ def ks_inner_case(params, level: int, key_cap, rng, dev):
           f"ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.0%} of bound)",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
+    """The fused bootstrap at the flagship's keys and refresh signature:
+    capture one graph from inputs[0] (an eager warm-up first), replay it on
+    every input and hold each replay against the eager bootstrap of the same
+    input, bit for bit; then two back-to-back replays must not overwrite
+    each other's output.  CUDA-event seconds of a warm eager bootstrap and
+    of a replay, the capture's seconds, the graph pool and the launches per
+    replay (= the key-switches a bootstrap counts)."""
+    eng = wrap.engine
+    fb = bootstrap.FusedBootstrap(eng, wrap.relin_key, wrap.conj_key,
+                                  wrap.boot_key, inputs[0])
+    per = fb.deltas
+    print(f"captured one graph at input level {fb.in_level}, scale/Delta "
+          f"{fb.in_scale / eng.params.scale:.9f} in {fb.capture_s:.3f} s "
+          f"(after the eager warm-up); graph pool {fb.pool_bytes / 2**30:.3f}"
+          f" GiB; per replay {per}", flush=True)
+    if per.get("ks_inner_launches", 0) <= 0 or \
+            per["ks_inner_launches"] != per.get("keyswitch") or \
+            per.get("bootstrap") != 1:
+        raise AssertionError(f"a replay would count {per}")
+
+    def timed(fn):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1) / 1e3
+
+    eager_s, replay_s = [], []
+    for i, ct in enumerate(inputs):
+        want, se = timed(lambda: eng.bootstrap(ct, wrap.relin_key,
+                                               wrap.conj_key, wrap.boot_key))
+        l0 = ks_inner.launches
+        k0 = eng.counters["keyswitch"]
+        got, sr = timed(lambda: fb(ct))
+        eager_s.append(se)
+        replay_s.append(sr)
+        if ks_inner.launches - l0 != per["ks_inner_launches"] or \
+                eng.counters["keyswitch"] - k0 != per["keyswitch"]:
+            raise AssertionError("a replay did not count its launches")
+        if not torch.equal(got.data, want.data) or got.scale != want.scale:
+            bad = int((got.data != want.data).sum())
+            raise AssertionError(f"replay {i} differs from the eager "
+                                 f"bootstrap in {bad} residues")
+    first = fb(inputs[1])
+    second = fb(inputs[2])
+    for ct, out in ((inputs[1], first), (inputs[2], second)):
+        want = eng.bootstrap(ct, wrap.relin_key, wrap.conj_key, wrap.boot_key)
+        if not torch.equal(out.data, want.data):
+            raise AssertionError("back-to-back replays share their output")
+    print(f"{len(inputs)} inputs: every replay equals the eager bootstrap bit "
+          f"for bit (and two back-to-back replays stay independent); warm "
+          f"eager {[round(x, 4) for x in eager_s]} s, replay "
+          f"{[round(x, 4) for x in replay_s]} s (CUDA events)", flush=True)
+    return dict(capture_s=fb.capture_s, pool_gib=fb.pool_bytes / 2 ** 30,
+                eager_s=float(np.median(eager_s)),
+                replay_s=float(np.median(replay_s)),
+                launches_per_replay=per["ks_inner_launches"])
 
 
 def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
@@ -355,7 +425,20 @@ def main() -> int:
           f"CoeffToSlot groups {len(bk.cts_plan)}, SlotToCoeff groups "
           f"{len(bk.stc_plan)}", flush=True)
     state = run_full_aes.make_state(wrap.engine.slot_count, SEED + 1)
-    res = run_full_aes.run_flagship(aes, state, FLAGSHIP_ROUNDS)
+    # keep the last refresh's 4 inputs (level 0) for the fused phase
+    inputs: list = []
+    refresh = aes.refresh
+
+    def recording_refresh(ct):
+        inputs.append(wrap.engine._drop(ct, 0))
+        del inputs[:-4]
+        return refresh(ct)
+
+    aes.refresh = recording_refresh
+    try:
+        res = run_full_aes.run_flagship(aes, state, FLAGSHIP_ROUNDS)
+    finally:
+        aes.refresh = refresh
     flag_launches = res["ks_inner_launches"]
     boot_s = res["bootstrap_s"]
     print(f"{res['blocks']} blocks, {FLAGSHIP_ROUNDS} rounds from level "
@@ -369,10 +452,18 @@ def main() -> int:
           f"{[round(x, 2) for x in boot_s]}; diagonal stacks "
           f"{res['diag_stacks']} ({res['diag_gib']:.2f} GiB), cache hits "
           f"{res['diag_hits']}, misses {res['diag_misses']}", flush=True)
+    for g in res["graphs"]:
+        print(f"fused bootstrap graph: input level {g['in_level']}, scale/"
+              f"Delta {g['in_scale'] / wrap.engine.params.scale:.9f}, "
+              f"captured in {g['capture_s']:.3f} s, pool "
+              f"{g['pool_gib']:.3f} GiB, per replay {g['per_replay']}",
+              flush=True)
     print(f"engine counters {res['counters']}; ks_inner launches "
           f"{flag_launches}; max | |slot| - 1 | = {res['max_slot_err']:.3e}; "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not res["fused_boot"] or not res["graphs"]:
+        raise AssertionError("the flagship did not run the fused bootstrap")
     if not res["exact"]:
         raise AssertionError(f"{res['bad_bytes']} of {wrap.engine.slot_count}"
                              f" bytes differ from AES-128 after "
@@ -389,6 +480,12 @@ def main() -> int:
     if flag_launches <= 0 or flag_launches != res["keyswitches"]:
         raise AssertionError(f"ks_inner launched {flag_launches} times for "
                              f"{res['keyswitches']} key-switches")
+
+    phase("fused bootstrap")
+    if len(inputs) != 4:
+        raise AssertionError(f"recorded {len(inputs)} refresh inputs, not 4")
+    fused_phase(wrap, inputs)
+    del inputs
 
     phase("kernel at the bootstrap's levels")
     levels = {}

@@ -1,4 +1,5 @@
-"""Card-only checks of the port's CUDA kernels against their plain versions.
+"""Card-only checks of the port's CUDA kernels against their plain versions,
+and of the fused bootstrap's CUDA graph against the eager bootstrap.
 
 Skipped without a CUDA card.  This file imports no JAX, so it also runs on
 a machine without the reference package's dependencies:
@@ -9,8 +10,10 @@ import pytest
 import torch
 
 from aesfhe_tpu_torch import interop
+from aesfhe_tpu_torch.bootstrap import FusedBootstrap
+from aesfhe_tpu_torch.context import EngineContext
 from aesfhe_tpu_torch.core import ks_inner, rns
-from aesfhe_tpu_torch.core.params import get_params
+from aesfhe_tpu_torch.core.params import CKKSParams, get_params
 
 
 @pytest.mark.parametrize("J,dnum,rows,Mk", [
@@ -39,3 +42,40 @@ def test_ks_inner_kernel_equals_plain(J, dnum, rows, Mk):
     torch.cuda.synchronize()
     assert ks_inner.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_fused_bootstrap_graph_equals_eager():
+    """tests/test_bootstrap.py's boot chain (n=2^9, 34 levels): the captured
+    graph's warm-up and two back-to-back replays on other inputs equal the
+    eager bootstrap bit for bit, each replay with its own output; every
+    replay counts the capture's key-switches and kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = CKKSParams(n=1 << 9, max_level=34, scale_bits=27,
+                        first_prime_bits=30, num_special_primes=4,
+                        secret_hamming=16)
+    ctx = EngineContext(params=params, device="cuda", rotation_steps=(),
+                        use_bootstrap=True, rng=np.random.default_rng(3))
+    eng = ctx.engine
+    keys = (ctx.relinearization_key, ctx.conjugation_key, ctx.bootstrap_key)
+    rng = np.random.default_rng(9)
+    ins = []
+    for _ in range(3):
+        p0, p1 = (1.0 - 2.0 * rng.integers(0, 2, eng.slot_count)
+                  for _ in range(2))
+        ins.append(eng.add(eng._drop(eng.encrypt(p0, ctx.public_key), 0),
+                           eng.multiply_i(eng._drop(
+                               eng.encrypt(p1, ctx.public_key), 0))))
+    fb = FusedBootstrap(eng, *keys, ins[0])
+    assert fb.graph is not None and fb.pool_bytes > 0
+    assert fb.deltas["ks_inner_launches"] == fb.deltas["keyswitch"] > 0
+    assert torch.equal(fb.warm_out.data, eng.bootstrap(ins[0], *keys).data)
+    before = ks_inner.launches
+    outs = [fb(ins[1]), fb(ins[2])]
+    torch.cuda.synchronize()
+    assert ks_inner.launches - before == 2 * fb.deltas["ks_inner_launches"]
+    for ct, out in zip(ins[1:], outs):
+        want = eng.bootstrap(ct, *keys)
+        assert torch.equal(out.data, want.data)
+        assert out.scale == want.scale == fb.out_scale
+    assert not torch.equal(outs[0].data, outs[1].data)
