@@ -2,6 +2,9 @@
 
 Commands (each runs on the card unless given --device cpu):
   gen-coeffs                regenerate every LUT coefficient JSON
+  keygen OUT [--profile P]  generate a key family from --seed and save it
+                            (the reference's .npz format: its load_keys
+                            reads the file)
   demo-xor [--profile P]    end-to-end homomorphic 4-bit XOR demo
   demo-aes [--rounds R]     homomorphic AES-128 rounds vs the plain oracle
            [--pipeline zeta|bitsliced] [--bootstrap]
@@ -21,6 +24,20 @@ def cmd_gen_coeffs(args):
     from .coeffs import generate
     for name, path in generate.generate_all().items():
         print(name, "->", path)
+
+
+def cmd_keygen(args):
+    from .context import EngineContext
+    from .utils.serialization import save_keys
+    t0 = time.perf_counter()
+    ctx = EngineContext(profile=args.profile, device=args.device,
+                        rng=np.random.default_rng(args.seed))
+    save_keys(args.out, secret=ctx.secret_key, public=ctx.public_key,
+              relin=ctx.relinearization_key, conj=ctx.conjugation_key,
+              rotation=ctx.rotation_key)
+    print(f"keygen+serialize ({args.profile}, seed {args.seed}, on "
+          f"{ctx.engine.device}) -> {args.out} "
+          f"[{time.perf_counter() - t0:.1f}s]")
 
 
 def cmd_demo_xor(args):
@@ -77,6 +94,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="aesfhe_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sub.add_parser("gen-coeffs").set_defaults(fn=cmd_gen_coeffs)
+    p = sub.add_parser("keygen")
+    p.add_argument("out")
+    p.add_argument("--profile", default="test")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_keygen)
     p = sub.add_parser("demo-xor")
     p.add_argument("--profile", default="tiny")
     p.add_argument("--seed", type=int, default=0)

@@ -135,7 +135,11 @@ class Engine:
     def _count(self, key, n=1):
         self.counters[key] += n
 
-    # ----- key-switch routing -------------------------------------------
+    # ----- key-switch routing hooks ------------------------------------
+    # Every key-switch of the engine (relinearize, rotate, conjugate, the
+    # hoisted rotations, hence the bootstrap) goes through these four
+    # methods; parallel.mesh_engine.MeshEngine overrides all four with the
+    # digit-sharded collective versions.
     def _relin_data(self, data, key: SwitchKey):
         """Relinearize degree-2 data [3, l+1, N] -> [2, l+1, N]."""
         b, a = ops_impl.keyswitch(self.params, self.tabs, data[2], key.b,
@@ -154,6 +158,21 @@ class Engine:
         q = ops_impl._q_tr(self.params, self.tabs,
                            data.shape[1] - 1).q.reshape(-1, 1)
         return torch.stack([rns.add_mod(p0.long(), b.long(), q).int(), a])
+
+    def adopt_key(self, key):
+        """What this engine keeps of a switch key: the key itself (a mesh
+        engine keeps its rank's digit shard)."""
+        return key
+
+    def _hoist_decompose(self, c1):
+        """Shared key-switch digit decomposition of a c1 polynomial."""
+        return ops_impl.ks_decompose(self.params, self.tabs, c1)
+
+    def _hoist_apply(self, data, d_eval, g: int, key: SwitchKey):
+        """One Galois application given the shared decomposition d_eval."""
+        return ops_impl.hoisted_rotate(self.params, self.tabs, data, d_eval,
+                                       self._perm_dev(g), key.b, key.a,
+                                       key.cap)
 
     # ------------------------------------------------------------------
     @property
@@ -559,7 +578,7 @@ class Engine:
         if ct.degree != 1:
             raise RuntimeError("rotate expects a degree-1 ciphertext")
         sc = self.params.slot_count
-        d_eval = ops_impl.ks_decompose(self.params, self.tabs, ct.data[1])
+        d_eval = self._hoist_decompose(ct.data[1])
         out = []
         for s in steps:
             s = s % sc
@@ -570,9 +589,7 @@ class Engine:
             if g not in rot_keys.keys:
                 raise KeyError(f"no rotation key for step {s}")
             key = rot_keys.keys[g]
-            data = ops_impl.hoisted_rotate(self.params, self.tabs, ct.data,
-                                           d_eval, self._perm_dev(g), key.b,
-                                           key.a, key.cap)
+            data = self._hoist_apply(ct.data, d_eval, g, key)
             self._count("keyswitch")
             self._count("rotate")
             out.append(Ciphertext(data, ct.scale))

@@ -381,22 +381,38 @@ def mod_raise_core(params, tabs, a):
 # Hybrid key-switch
 # ---------------------------------------------------------------------------
 
-def ks_decompose(params, tabs, c_eval):
+def ks_decompose(params, tabs, c_eval, j0: int = 0, j1: int | None = None):
     """Digit-decompose, basis-extend and NTT a polynomial for key switching.
 
-    c_eval int32 [l+1, N] -> d_eval int32 [dnum_active, M, N] (Montgomery
-    eval over active q + specials).  Automorphisms commute with it limb-wise,
-    so one decomposition serves every rotation of a hoisted batch."""
+    c_eval int32 [l+1, N] -> d_eval int32 [j1 - j0, M, N] (Montgomery eval
+    over active q + specials): digits j0 <= j < j1, by default every digit
+    active at this level.  A digit past the active ones is padding and
+    comes out zero, as the reference's padded digit tables
+    (`parallel/dist_keyswitch.py:_padded_digit_tables`: inv_w = 0) make it,
+    so a rank of the digit-sharded key-switch extends and NTTs only its own
+    digits.  Automorphisms commute with it limb-wise, so one decomposition
+    serves every rotation of a hoisted batch."""
     lp1, n = c_eval.shape
     level = lp1 - 1
-    kst = params.ks_tables(level)
-    tr_q = _q_tr(params, tabs, level)
+    groups = params.ks_tables(level)["groups"]
+    j1 = len(groups) if j1 is None else j1
     tr_b = tabs.rows(_rows(params, level, True))
+    live = range(j0, min(j1, len(groups)))
+    npad = j1 - j0 - len(live)
+
+    def padding():
+        return torch.zeros((npad, len(tr_b.q), n), dtype=torch.int32,
+                           device=c_eval.device)
+
+    if not live:
+        return padding()
+    tr_q = _q_tr(params, tabs, level)
     c_plain = rns.from_mont(intt_rows(c_eval.long(), tr_q),
                             tr_q.q.reshape(-1, 1), tr_q.rinv.reshape(-1, 1))
     q_basis = tr_b.q.reshape(1, -1, 1)
     digits = []
-    for j, g in enumerate(kst["groups"]):
+    for j in live:
+        g = groups[j]
         limbs = g["limbs"]
         qg = tabs.const(("ksd_q", level, j),
                         lambda: [params.q_primes[i] for i in limbs])
@@ -411,7 +427,8 @@ def ks_decompose(params, tabs, c_eval):
     qb = tr_b.q.reshape(1, -1, 1)
     dm = rns.to_mont(dstack, qb, tr_b.r2.reshape(1, -1, 1),
                      tr_b.rinv.reshape(1, -1, 1))
-    return ntt_rows(dm, tr_b).int()
+    out = ntt_rows(dm, tr_b).int()
+    return torch.cat([out, padding()]) if npad else out
 
 
 def _key_rows(params: CKKSParams, level: int, key_cap):

@@ -32,11 +32,15 @@ class XORConfig:
     sequence, possibly empty -> only those steps), whether to generate the
     bootstrap key, whether EngineWrapper.bootstrap replays the fused
     bootstrap (`fused_boot`; the reference's AESFHE_FUSED_BOOT, off by
-    default as there), and the coefficient files of the XOR service."""
+    default as there), the device mesh the engine's key-switches shard over
+    (`mesh`, `mesh_axis`: see EngineContext), and the coefficient files of
+    the XOR service.  A fused bootstrap is a CUDA graph, which cannot
+    capture the mesh's collectives: with a mesh, `fused_boot` raises."""
 
     def __init__(self, profile: str | None = None, params=None,
                  rotation_steps=None, device="cuda",
                  use_bootstrap: bool = False, fused_boot: bool = False,
+                 mesh=None, mesh_axis: str = "limb",
                  coeffs_path: Path = COEFF_DIR / "xor_mono_coeffs.json",
                  nibble_hi_path: Path = COEFF_DIR / "nibble_hi16_coeffs.json",
                  nibble_lo_path: Path = COEFF_DIR / "nibble_test.json",
@@ -53,6 +57,17 @@ class XORConfig:
         self.device = device
         self.use_bootstrap = use_bootstrap
         self.fused_boot = fused_boot
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        _check_fused_on_mesh(fused_boot, mesh)
+
+
+def _check_fused_on_mesh(fused_boot: bool, mesh):
+    if fused_boot and mesh is not None:
+        raise ValueError("fused_boot=True on a device mesh: the fused "
+                         "bootstrap is a CUDA graph, which cannot capture "
+                         "the mesh's collectives; use the eager bootstrap "
+                         "(fused_boot=False)")
 
 
 class EngineWrapper:
@@ -66,7 +81,10 @@ class EngineWrapper:
             ctx = EngineContext(params=config.params, profile=config.profile,
                                 device=config.device, rng=rng,
                                 rotation_steps=config.rotation_steps,
-                                use_bootstrap=config.use_bootstrap)
+                                use_bootstrap=config.use_bootstrap,
+                                mesh=config.mesh, mesh_axis=config.mesh_axis)
+        _check_fused_on_mesh(config.fused_boot,
+                             getattr(ctx.engine, "mesh", None))
         self.ctx = ctx
         self.engine: Engine = ctx.engine
         self.public_key = ctx.public_key
@@ -169,7 +187,8 @@ class EngineWrapper:
                                                self.secret_key,
                                                self.engine.rng,
                                                sorted(set(missing)))
-            self.rot_key.keys.update(fixed.keys)
+            self.rot_key.keys.update(
+                {g: self.engine.adopt_key(k) for g, k in fixed.keys.items()})
 
     def linear_combination(self, cts, coeffs, constant=0.0,
                            target_scale=None):

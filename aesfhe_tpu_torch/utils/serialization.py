@@ -1,9 +1,9 @@
-"""Keys and ciphertexts on disk, in the reference's `.npz` formats.
-Counterpart of `aesfhe_tpu/utils/serialization.py` (its file formats and
-`params_fingerprint`): residues are stored as uint32 arrays with the bits
-the port keeps in int32 tensors, so a file either package writes loads in
-the other.  Loading places tensors on the card unless the caller passes
-device="cpu".
+"""Keys and ciphertexts on disk, in the reference's `.npz` formats, and the
+on-disk key cache.  Counterpart of `aesfhe_tpu/utils/serialization.py`:
+residues are stored as uint32 arrays with the bits the port keeps in int32
+tensors, so a file either package writes loads in the other (the cache's
+files too: same names, same fingerprints).  Loading places tensors on the
+card unless the caller passes device="cpu".
 
     ciphertext  data (uint32 [degree+1, level+1, N]), scale, kind
     keys        secret_s_eval, secret_s_coeff, public_{b,a}, relin_{b,a},
@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import secrets
+import zipfile
 from pathlib import Path
 from typing import Any
 
@@ -96,3 +99,102 @@ def params_fingerprint(params) -> str:
                    params.secret_hamming, params.alpha,
                    params.all_primes)).encode())
     return h.hexdigest()[:16]
+
+
+def _cache_cap_mb() -> float:
+    return float(os.environ.get("AESFHE_KEY_CACHE_MAX_MB", "1024"))
+
+
+def _save_atomic(path: Path, **keys):
+    """save_keys through a temp name no other writer uses (pid and a random
+    suffix), then one atomic rename: concurrent writers of the same entry
+    each replace it whole, and a reader never sees half a file."""
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}."
+                         f"{secrets.token_hex(6)}.tmp.npz")
+    try:
+        save_keys(tmp, **keys)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def cached_key_family(engine, cache_dir, rotation_steps=None) -> dict:
+    """The (secret, public, relin, conj, rotation) key family of `engine`
+    from `cache_dir`, generated from the engine's generator and saved on
+    first use.  Counterpart of the reference's function of that name: the
+    same file name (`keys_<params_fingerprint>.npz`, the fingerprint bound
+    to the sorted explicit rotation steps when given), the same draw order
+    (secret, rotations, public, relin, conj), the same size cap (families
+    whose switch keys exceed AESFHE_KEY_CACHE_MAX_MB, default 1024, are
+    generated but not saved), so files cross between the packages.  Unlike
+    the reference it writes through a temp name of its own
+    (`_save_atomic`), so concurrent writers do not race.
+
+    `rotation_steps`: None -> the power-of-two ladder; a sequence -> only
+    those steps (possibly none)."""
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    fp = params_fingerprint(engine.params)
+    if rotation_steps is not None:
+        fp = hashlib.sha256((fp + repr(sorted(set(
+            int(s) for s in rotation_steps)))).encode()).hexdigest()[:16]
+    path = cache_dir / f"keys_{fp}.npz"
+    if path.exists():
+        try:
+            k = load_keys(path, device=engine.device)
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            path.unlink(missing_ok=True)
+        else:
+            need = {"secret", "public", "relin", "conj"}
+            # a ladder caller needs the rotation keys in the file
+            if rotation_steps is None:
+                need |= {"rotation"}
+            if need <= set(k):
+                k.setdefault("rotation", GaloisKeySet(keys={}))
+                return k
+    sk = engine.create_secret_key()
+    if rotation_steps is None:
+        rot = engine.create_rotation_key(sk)
+    elif rotation_steps:
+        rot = engine.create_fixed_rotation_key(sk, list(rotation_steps))
+    else:
+        rot = GaloisKeySet(keys={})
+    out = dict(secret=sk, public=engine.create_public_key(sk),
+               relin=engine.create_relinearization_key(sk),
+               conj=engine.create_conjugation_key(sk), rotation=rot)
+    p = engine.params
+    switch_mb = (2 + len(rot.keys)) * 2 * p.dnum * p.L_tot * p.n * 4 / 2**20
+    if switch_mb <= _cache_cap_mb():
+        _save_atomic(path, **out)
+    return out
+
+
+def cached_bootstrap_key(engine, sk, cache_dir, *, small: bool = False,
+                         factored: bool | None = None,
+                         hi_prec: bool | None = None):
+    """create_bootstrap_key with its Galois key set cached on disk, under
+    the reference's name (`bootrot_<hash>.npz`: the params fingerprint, the
+    flavor knobs and the secret key's coefficients), size-capped like
+    cached_key_family."""
+    from .. import bootstrap as bs
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    h = hashlib.sha256((params_fingerprint(engine.params) +
+                        f"|boot|{small}|{factored}|{hi_prec}").encode())
+    h.update(np.ascontiguousarray(sk.s_coeff).tobytes())
+    path = cache_dir / f"bootrot_{h.hexdigest()[:16]}.npz"
+    rot = None
+    if path.exists():
+        try:
+            rot = load_keys(path, device=engine.device).get("rotation")
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            path.unlink(missing_ok=True)
+    had_cache = rot is not None
+    bk = bs.create_bootstrap_key(engine, sk, small=small, factored=factored,
+                                 rot=rot, hi_prec=hi_prec)
+    if not had_cache and bk.rot is not None and bk.rot.keys:
+        mb = sum(k.b.numel() + k.a.numel()
+                 for k in bk.rot.keys.values()) * 4 / 2 ** 20
+        if mb <= _cache_cap_mb():
+            _save_atomic(path, rotation=bk.rot)
+    return bk

@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (aesfhe_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mesh-only]
 
-Phases, each announced on its own line; any failure exits non-zero:
+Phases, each announced on its own line; any failure exits non-zero
+(`--mesh-only`: phases 1-3 and 9, e.g. on a machine with several cards):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and which of nvcc, ninja and triton exist;
   2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
@@ -40,10 +41,29 @@ Phases, each announced on its own line; any failure exits non-zero:
      and round 1, no refresh) held against aes128_partial(block, key, 1),
      and the inverse leg (decrypt_rounds on a fresh encryption of that
      result, segment-refresh schedule with the bootstrap) held against the
-     plaintext; launches must equal key-switches in each leg.
+     plaintext; launches must equal key-switches in each leg;
+  9. mesh phase: the multi-device path (parallel.MeshEngine) at prod_boot
+     on D ranks, each a spawned process: D = the card count over NCCL with
+     two cards or more, else D = 2 ranks sharing the one card over gloo
+     (CUDA tensors if this gloo takes them, else staged through pinned host
+     buffers; printed).  Every rank generates the flagship's keys from one
+     seed (relin, conj, the bootstrap's Galois keys, the round's rotation
+     keys) and keeps its digit shard on a MeshEngine (EngineContext.on_mesh);
+     2048 random blocks at the work level 15 go through one bit-sliced
+     round and then the pair-packed refresh's first two bootstraps (the
+     first fills the diagonal cache, the second runs warm; eager: a CUDA
+     graph cannot capture the collectives) with every key-switch sharded
+     (one all-reduce each).  Rank 0 runs the same inputs through the
+     single-device Engine with the same full keys: every output ciphertext
+     must be torch.equal, every block equal to the AES oracle and the
+     bootstrap decode to the round's bits; on every rank all-reduces =
+     key-switches = ks_inner launches, and the ledger's bytes = the
+     predicted 2*M*N*8 per key-switch at its level.  The kernel phase also
+     times ks_inner at the ranks' shapes (J = pad/D digits, the last rank's
+     padded digits zero) and on an all-zero shard.
 The line before the last is a JSON object with one entry per kernel
-(launches summed over the slice, the flagship and the zeta legs); the last
-line is
+(launches summed over the slice, the flagship, the zeta legs and every
+rank of the mesh phase); the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -51,6 +71,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -62,10 +83,15 @@ import torch
 from aesfhe_tpu_torch import bootstrap, kernels, run_full_aes, zeta_trace
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
+from aesfhe_tpu_torch.core.ciphertext import Ciphertext
 from aesfhe_tpu_torch.core.params import get_params
 from aesfhe_tpu_torch.ops.bitplane import BitState
 from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
 from aesfhe_tpu_torch.ops.zeta import phase_error, split_nibbles
+from aesfhe_tpu_torch.parallel import comm_ledger, launch
+from aesfhe_tpu_torch.parallel.comm_ledger import allreduce_wire_bytes
+from aesfhe_tpu_torch.parallel.mesh import (digit_pad, make_mesh,
+                                            mesh_device, replicated)
 from aesfhe_tpu_torch.pipeline import AESFHE128, AESFHE128Bitsliced
 
 PROFILE = "prod_boot"
@@ -85,6 +111,7 @@ FLAGSHIP_ROUNDS = 10
 SEED = 0
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")   # FIPS-197 C.1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
+MESH_SEED = SEED + 4
 
 
 T0 = time.perf_counter()
@@ -158,7 +185,228 @@ def ks_inner_case(params, level: int, key_cap, rng, dev):
           f"Mk={Mk} N={N}: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.0%} of bound)",
           flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    return dict(level=level, J=J, M=len(rows), cap=key_cap, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def ks_inner_shard_case(params, level: int, d: int, rank: int, rng, dev):
+    """Kernel vs plain version at one mesh rank's shape: the J = pad/D
+    digits [rank*J, (rank+1)*J) of a switch at `level`, against the rank's
+    key shard (full layout); digits past the level's active ones are zero
+    in both, as ks_decompose and key_shard pad them."""
+    pad = digit_pad(params.dnum, d)
+    J = pad // d
+    j0 = rank * J
+    live = len(params.ks_tables(level)["groups"])
+    rows = ops_impl._key_rows(params, level, None)
+    basis = ops_impl._rows(params, level, True)
+    qs = np.asarray(params.all_primes, dtype=np.int64)[basis]
+    qk = np.asarray(params.all_primes, dtype=np.int64)
+    N = params.n
+    dig = rng.integers(0, 1 << 62, (J, len(rows), N)) % qs[:, None]
+    kb, ka = (rng.integers(0, 1 << 62, (J, params.L_tot, N)) % qk[:, None]
+              for _ in range(2))
+    zero = [j for j in range(J) if j0 + j >= live]
+    for a in (dig, kb, ka):
+        a[zero] = 0
+    qinv = [rns.montgomery_consts(int(q))[0] for q in qs]
+    t = [rns.narrow(torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                    device=dev))
+         for a in (dig, kb, ka, qs, qinv)]
+    args = (t[0], t[1], t[2], rows, t[3], t[4])
+    got = ks_inner.ks_inner(*args)
+    want = ks_inner.ks_inner_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"ks_inner disagrees with its plain version on "
+                             f"rank {rank} of {d} at level {level}: max "
+                             f"|err| {err}")
+    if len(zero) == J and bool(got.any()):
+        raise AssertionError("ks_inner on an all-zero shard is not zero")
+    ms = cuda_ms(lambda: ks_inner.ks_inner(*args))
+    plain_ms = cuda_ms(lambda: ks_inner.ks_inner_plain(*args), reps=5)
+    bound_ms = ks_inner.bytes_moved(J, len(rows), N) / HBM_BYTES_PER_S * 1e3
+    print(f"ks_inner mesh shard D={d} rank={rank} level={level} J={J} "
+          f"(zero digits {len(zero)}) M={len(rows)} N={N}: equal, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_ms / ms:.0%} of bound)", flush=True)
+    return dict(level=level, J=J, M=len(rows), mesh=f"rank {rank} of {d}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def mesh_rank(rank: int, world: int, profile: str, device_type: str) -> dict:
+    """One rank of the mesh phase (the module docstring, phase 9)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = make_mesh(1, world, device_type)
+    dev = mesh_device(mesh)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    wrap = EngineWrapper(XORConfig(profile=profile, rotation_steps=(),
+                                   device=dev, use_bootstrap=True),
+                         rng=np.random.default_rng(MESH_SEED))
+    wrap.rot_key.keys.update(wrap.boot_key.rot.keys)
+    aes = AESFHE128Bitsliced(wrap, KEY)
+    mctx = wrap.ctx.on_mesh(mesh)
+    mwrap = EngineWrapper(ctx=mctx)
+    maes = AESFHE128Bitsliced(mwrap, KEY)
+    meng = mwrap.engine
+    sync()
+    keygen_s = time.perf_counter() - t0
+    params = meng.params
+    sc = meng.slot_count
+    state = run_full_aes.make_state(sc, SEED + 5)
+    work = maes.ROUND_DEPTH + 1
+    st = [meng._drop(b, work) for b in maes.encrypt_state(state).bits]
+    st = BitState([Ciphertext(replicated(mesh, b.data.contiguous()), b.scale)
+                   for b in st])
+    if rank != 0:
+        del aes, wrap                  # keep only the digit shards
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    meng.reset_counters()
+    meng.dks.levels.clear()
+    ks_inner.launches = 0
+    with comm_ledger.recording() as led:
+        t0 = time.perf_counter()
+        out = run_full_aes.run_round(maes, st, 1, 1)
+        sync()
+        round_s = time.perf_counter() - t0
+        zs, boot_s = _refresh_two_pairs(mwrap, out, sync)
+    launches = ks_inner.launches
+    counters = dict(meng.counters)
+    levels = dict(meng.dks.levels)
+    K, N = params.num_special, params.n
+    predicted = sum(c * 2 * (lvl + 1 + K) * N * 8 for lvl, c in levels.items())
+    res = dict(rank=rank, keygen_s=keygen_s, round_s=round_s,
+               boot_s=boot_s, launches=launches,
+               keyswitches=counters["keyswitch"],
+               bootstraps=counters["bootstrap"], levels=levels,
+               allreduces=led.counts.get("psum", 0),
+               allreduce_bytes=led.bytes_in.get("psum", 0),
+               allreduce_s=led.seconds_of("psum"),
+               predicted_bytes=predicted, other=dict(led.counts),
+               digits=meng.dks.digits, pad=meng.dks.pad,
+               mode=meng.dks.comm.mode,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if cuda else 0.0))
+    # (on a CPU rehearsal the plain version runs: no launches)
+    if not (counters["keyswitch"] == sum(levels.values())
+            == res["allreduces"] > 0) or set(led.counts) != {"psum"} or \
+            (cuda and launches != counters["keyswitch"]):
+        raise AssertionError(f"rank {rank}: {launches} launches, "
+                             f"{counters['keyswitch']} key-switches, "
+                             f"collectives {led.counts}, levels {levels}")
+    if res["allreduce_bytes"] != predicted:
+        raise AssertionError(f"rank {rank}: ledger {res['allreduce_bytes']} "
+                             f"bytes, predicted {predicted}")
+    if rank == 0:
+        sync()
+        t0 = time.perf_counter()
+        out1 = run_full_aes.run_round(aes, st, 1, 1)
+        sync()
+        res["single_round_s"] = time.perf_counter() - t0
+        zs1, res["single_boot_s"] = _refresh_two_pairs(wrap, out1, sync)
+        for k, (a, b) in enumerate(zip(out.bits + zs, out1.bits + zs1)):
+            if not torch.equal(a.data, b.data) or a.scale != b.scale:
+                what = f"round plane {k}" if k < 8 else f"bootstrap {k - 8}"
+                raise AssertionError(f"{what}: the mesh differs from the "
+                                     f"single-device Engine")
+        want = np.concatenate([aes128_partial(state[b:b + 16], KEY, 1)
+                               for b in range(0, sc, 16)])
+        got = maes.decrypt_state(out)
+        if int(np.sum(got != want)):
+            raise AssertionError(f"{int(np.sum(got != want))} of {sc} bytes "
+                                 f"differ from AES-128 after one round")
+        err = 0.0
+        for i, z in enumerate(zs):
+            v = mwrap.decrypt(z)
+            if v.shape != (sc,) or not np.all(np.isfinite(v)):
+                raise AssertionError("bootstrap output is not finite or "
+                                     "mis-shaped")
+            bits = ((np.real(v) < 0).astype(np.uint8)
+                    | ((np.imag(v) < 0).astype(np.uint8) << 1))
+            if not np.array_equal(bits, (want >> 2 * i) & 3):
+                raise AssertionError(f"refreshed pair {i} does not decode "
+                                     f"to the round's bits")
+            err = max(err, float(np.max(np.abs(np.abs(v.real) - 1))),
+                      float(np.max(np.abs(np.abs(v.imag) - 1))))
+        res.update(exit_level=zs[0].level, blocks=sc // 16, slot_err=err)
+    return res
+
+
+def _refresh_two_pairs(wrap: EngineWrapper, st: BitState, sync):
+    """Bootstraps 1 and 2 of the pair-packed refresh (planes 0+i*1 and
+    2+i*3) through the wrapper's eager bootstrap: the first fills the
+    bootstrap key's diagonal cache, the second runs warm.  Returns the two
+    outputs and their seconds."""
+    eng = wrap.engine
+    outs, secs = [], []
+    for p in (0, 2):
+        sync()
+        t0 = time.perf_counter()
+        packed = eng.add(st.bits[p], eng.multiply_i(st.bits[p + 1]))
+        outs.append(wrap.bootstrap(packed))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def _share(r: dict) -> str:
+    """The all-reduces' time (host wall over gloo, stream time between CUDA
+    events over NCCL) and its share of the mesh's round + bootstraps."""
+    wall = r["round_s"] + sum(r["boot_s"])
+    return f"{r['allreduce_s']:.3f} s ({r['allreduce_s'] / wall:.0%})"
+
+
+def mesh_phase() -> dict:
+    """The mesh phase in spawned ranks; returns rank 0's record and the
+    launches summed over the ranks."""
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards >= 2 else (2, "gloo")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch.spawn(mesh_rank, world, PROFILE, "cuda", backend=backend,
+                       timeout_s=900)
+    r0 = res[0]
+    print(f"D={world} ranks over {backend} ({r0['mode']}), pad {r0['pad']} "
+          f"digits: {[r['digits'] for r in res]}; spawn to end "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for r in res:
+        print(f"rank {r['rank']}: keygen {r['keygen_s']:.2f} s, round "
+              f"{r['round_s']:.3f} s, bootstraps {r['boot_s'][0]:.3f} s "
+              f"(fills the diagonal cache) and {r['boot_s'][1]:.3f} s; "
+              f"{r['keyswitches']} key-switches = {r['launches']} ks_inner "
+              f"launches = {r['allreduces']} all-reduces of "
+              f"{r['allreduce_bytes']} operand bytes (predicted "
+              f"{r['predicted_bytes']}; ring wire bytes per rank "
+              f"{allreduce_wire_bytes(r['allreduce_bytes'], world):.0f}); "
+              f"all-reduces take "
+              f"{_share(r)}; peak device memory {r['peak_gib']:.2f} GiB",
+              flush=True)
+    lv = sorted(r0["levels"].items(), reverse=True)
+    print(f"key-switches per level: {lv}", flush=True)
+    sb = r0["single_boot_s"]
+    print(f"single-device Engine, same call (rank 0, after the mesh; the "
+          f"diagonal cache is shared, so both its bootstraps run warm): "
+          f"round {r0['single_round_s']:.3f} s, bootstraps {sb[0]:.3f} and "
+          f"{sb[1]:.3f} s; mesh / single: round "
+          f"{r0['round_s'] / r0['single_round_s']:.2f}x, warm bootstrap "
+          f"{r0['boot_s'][1] / sb[1]:.2f}x", flush=True)
+    print(f"every output ciphertext equals the single-device Engine's; all "
+          f"{r0['blocks']} blocks equal aes128_partial(block, key, 1); both "
+          f"bootstraps (exit level {r0['exit_level']}, max | |slot| - 1 | "
+          f"{r0['slot_err']:.3e}) decode to the round's bits 0-3", flush=True)
+    return dict(rank0=r0, launches=sum(r["launches"] for r in res),
+                world=world, backend=backend)
 
 
 def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
@@ -313,7 +561,29 @@ def zeta_phase() -> tuple[dict, dict]:
     return fwd, inv
 
 
-def main() -> int:
+def finish(card: str, cases: list, top: dict, launches: int) -> int:
+    """The closing lines: the kernels line (`launches` summed over the
+    main paths run; ms, plain_ms and bound_ms of the widest shape, and
+    every shape timed under "shapes"), the card, the contract's last
+    line."""
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": [dict(
+        name="ks_inner", route="cuda",
+        source="aesfhe_tpu_torch/csrc/ks_inner.cu",
+        replaces="aesfhe_tpu/core/pallas_ks.py:38", launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by="bytes", library_ms=None, shapes=cases)]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    mesh_only = "--mesh-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -348,6 +618,15 @@ def main() -> int:
     # of the chain (J = dnum digits, every q-prime and special prime)
     top = ks_inner_case(params, params.top_level, None, rng, dev)
     cases.append(top)
+    # the mesh phase's shapes: the last rank's J = pad/D digits at the top
+    # level (its last digit is padding), D = 2 and 4, and a rank whose whole
+    # shard is padding (level 15, D = 2)
+    cases += [ks_inner_shard_case(params, params.top_level, d, d - 1, rng,
+                                  dev) for d in (2, 4)]
+    cases.append(ks_inner_shard_case(params, 15, 2, 1, rng, dev))
+    if mesh_only:
+        phase("mesh")
+        return finish(card, cases, top, mesh_phase()["launches"])
 
     phase("slice")
     t0 = time.perf_counter()
@@ -506,21 +785,10 @@ def main() -> int:
     fwd, inv = zeta_phase()
     zeta_launches = fwd["launches"] + inv["launches"]
 
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
-          flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="ks_inner", route="cuda",
-        source="aesfhe_tpu_torch/csrc/ks_inner.cu",
-        replaces="aesfhe_tpu/core/pallas_ks.py:38",
-        launches=slice_launches + flag_launches + zeta_launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases), ms=top["ms"],
-        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by="bytes", library_ms=None)]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    phase("mesh")
+    mesh = mesh_phase()
+    return finish(card, cases, top, slice_launches + flag_launches
+                  + zeta_launches + mesh["launches"])
 
 
 if __name__ == "__main__":

@@ -79,3 +79,52 @@ def test_fused_bootstrap_graph_equals_eager():
         assert torch.equal(out.data, want.data)
         assert out.scale == want.scale == fb.out_scale
     assert not torch.equal(outs[0].data, outs[1].data)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_ks_inner_kernel_on_mesh_shards(d):
+    """The kernel at a mesh rank's shape: J = pad/D digits of prod_boot's
+    top level (J = 4 at D = 2, J = 2 at D = 4, M = 63), for every rank, the
+    last rank's padded digits (and the key rows behind them) zero; and a
+    rank whose whole shard is padding (level 15) returns zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch.core import ops_impl
+    from aesfhe_tpu_torch.parallel.mesh import digit_pad
+    p = get_params("prod_boot")
+    dev = torch.device("cuda")
+    J = digit_pad(p.dnum, d) // d
+    rng = np.random.default_rng(d)
+    for level in (p.top_level, 15):
+        live = len(p.ks_tables(level)["groups"])
+        rows = ops_impl._key_rows(p, level, None)
+        qs = np.asarray(p.all_primes, dtype=np.int64)[rows]
+        qk = np.asarray(p.all_primes, dtype=np.int64)
+        qinv = [rns.montgomery_consts(int(q))[0] for q in qs]
+        for rank in range(d):
+            dig = rng.integers(0, 1 << 62, (J, len(rows), p.n)) % qs[:, None]
+            kb, ka = (rng.integers(0, 1 << 62, (J, p.L_tot, p.n))
+                      % qk[:, None] for _ in range(2))
+            zero = [j for j in range(J) if rank * J + j >= live]
+            for a in (dig, kb, ka):
+                a[zero] = 0
+            t = [interop.to_tensor(np.asarray(a, dtype=np.uint32), dev)
+                 for a in (dig, kb, ka, qs, qinv)]
+            got = ks_inner.ks_inner(t[0], t[1], t[2], rows, t[3], t[4])
+            want = ks_inner.ks_inner_plain(t[0], t[1], t[2], rows, t[3],
+                                           t[4])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (level, rank)
+            if len(zero) == J:
+                assert not got.any()
+
+
+def test_dryrun_multichip_on_the_card():
+    """graft_entry.dryrun_multichip(2) on the card: two ranks (sharing one
+    card over gloo, or one card each over NCCL) run the batched step equal
+    to one device, and the distributed NTT is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch.graft_entry import dryrun_multichip
+    out = dryrun_multichip(2)
+    assert out["ntt_exact"] is True and out["keyswitches"] > 0
