@@ -8,6 +8,8 @@ Commands (each runs on the card unless given --device cpu):
   demo-xor [--profile P]    end-to-end homomorphic 4-bit XOR demo
   demo-aes [--rounds R]     homomorphic AES-128 rounds vs the plain oracle
            [--pipeline zeta|bitsliced] [--bootstrap]
+  bench                     the benchmark (one JSON line; AESFHE_BENCH_MODE
+                            flagship|bitplane|zeta, see bench.py)
 """
 from __future__ import annotations
 
@@ -90,6 +92,11 @@ def cmd_demo_aes(args):
     sys.exit(0 if ok else 1)
 
 
+def cmd_bench(args):
+    from . import bench
+    sys.exit(bench.main(args.device))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="aesfhe_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -116,6 +123,9 @@ def main(argv=None):
                    help="refresh between rounds (bitsliced pipeline, "
                         "bootstrap-capable profile)")
     p.set_defaults(fn=cmd_demo_aes)
+    p = sub.add_parser("bench")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     args.fn(args)
 

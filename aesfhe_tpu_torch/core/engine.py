@@ -5,8 +5,9 @@ Scale/level policy as in the reference: every multiply relinearizes (when a
 relin key is given) and rescales, so `level` drops by one per depth; adds
 align operand levels and scales with exact scale tracking.
 
-The engine owns its device and a `numpy.random.Generator`, from which keygen
-and encryption noise are drawn in the reference's order.
+The engine owns its device and a `numpy.random.Generator` (or a
+`keys.OSEntropyRNG`), from which keygen and encryption noise are drawn in
+the reference's order.
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ class Engine:
             params = get_params(profile or "test")
         self.params = params
         self.device = resolve_device(device)
-        self.rng = np.random.default_rng() if rng is None else rng
+        self.rng = keys_mod.default_rng() if rng is None else rng
         self.tabs = ops_impl.DeviceTables(params, self.device)
         self.counters = {k: 0 for k in
                          ("ct_mul", "pt_mul", "scalar_mul", "add", "rescale",

@@ -5,9 +5,16 @@ Sampling runs on the host with numpy from an explicit
 `numpy.random.Generator`, draw for draw as the reference samples from its
 module generator; the NTT into the evaluation domain is the port's own.
 For one seed the keys equal the reference's bit for bit.
+
+Production keygen: pass `rng=OSEntropyRNG()` (or set AESFHE_KEYGEN_RNG=os,
+which `Engine(rng=None)` reads): every sampling call then draws through a
+PCG64 freshly keyed from the kernel CSPRNG via `secrets`, so no long-lived
+deterministic stream state exists to leak or roll back.
 """
 from __future__ import annotations
 
+import os
+import secrets
 from dataclasses import dataclass
 
 import numpy as np
@@ -15,6 +22,37 @@ import torch
 
 from . import ops_impl, rns
 from .params import CKKSParams
+
+
+class OSEntropyRNG:
+    """numpy Generator facade re-keyed from the OS on every call.
+
+    Each sampling method draws through a PCG64 seeded with 256 fresh bits
+    of kernel entropy, so consecutive keys share no PRG state; the PCG64
+    expansion only whitens within one call's output block."""
+
+    def _g(self) -> np.random.Generator:
+        return np.random.default_rng(secrets.randbits(256))
+
+    def choice(self, *a, **k):
+        return self._g().choice(*a, **k)
+
+    def random(self, *a, **k):
+        return self._g().random(*a, **k)
+
+    def normal(self, *a, **k):
+        return self._g().normal(*a, **k)
+
+    def integers(self, *a, **k):
+        return self._g().integers(*a, **k)
+
+
+def default_rng():
+    """The generator of an engine built without one: OSEntropyRNG when
+    AESFHE_KEYGEN_RNG=os, else a fresh numpy Generator."""
+    if os.environ.get("AESFHE_KEYGEN_RNG") == "os":
+        return OSEntropyRNG()
+    return np.random.default_rng()
 
 
 @dataclass

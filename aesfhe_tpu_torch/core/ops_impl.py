@@ -482,6 +482,31 @@ def keyswitch(params, tabs, c_eval, key_b, key_a, key_cap=None):
     return ks_inner_and_moddown(params, tabs, d_eval, key_b, key_a, key_cap)
 
 
+def _vhat_frac(yf, inv_p, K: int):
+    """sum_i yf_i * inv_p_i in float32 over the K special rows of yf
+    [..., K, N], in XLA:CPU's order for the reference's jnp.sum: K = 8 as
+    one 8-lane vector, each product rounded, then halves added
+    (t_i + t_{i+4}, then + t_{i+2}, then + t_{i+1}); any other K as a
+    fused multiply-add chain acc = fma(yf_i, inv_p_i, acc) from 0, each
+    step rounded once (the float64 product of two float32 values is exact;
+    the float64 sum rounds only for a product far below the sum, where a
+    double rounding needs ~29 particular bits).  Orders differ only where
+    the sum falls within a float32 ulp of a half-integer: v_hat then
+    differs by one, and the result by one unit in that coefficient
+    (ROADMAP queue 3)."""
+    if K == 8:
+        t = [yf[..., i:i + 1, :] * inv_p[i] for i in range(K)]
+        while len(t) > 1:
+            h = len(t) // 2
+            t = [t[i] + t[i + h] for i in range(h)]
+        return t[0]
+    inv = inv_p.double()
+    acc = torch.zeros_like(yf[..., 0:1, :], dtype=torch.float64)
+    for i in range(K):
+        acc = (yf[..., i:i + 1, :].double() * inv[i] + acc).float().double()
+    return acc.float()
+
+
 def _mod_down_specials(params, tabs, x, level: int):
     """x int64 [..., l+1+K, N] over (active q | specials) -> int64
     [..., l+1, N] ~ x / P: one iNTT of the K special rows, the approximate
@@ -489,9 +514,9 @@ def _mod_down_specials(params, tabs, x, level: int):
     of the q rows.
 
     The raw conversion sum_i y_i (P/p_i) equals [x]_P + v P for an integer
-    v in [0, K); v_hat = round(sum_i y_i / p_i) in float32 removes it.  The
-    sum runs sequentially over i with separate multiply and add roundings,
-    as the reference's XLA reduction does, so v_hat is the same integer."""
+    v in [0, K); v_hat = round(sum_i y_i / p_i) in float32 removes it, the
+    sum in the order the reference's compiled reduction takes
+    (_vhat_frac), so v_hat is the same integer."""
     K = params.num_special
     lp1 = level + 1
     mdt = params.md_tables(level)
@@ -520,11 +545,8 @@ def _mod_down_specials(params, tabs, x, level: int):
         ("md_inv_p",),
         lambda: (1.0 / np.asarray(params.special_primes, dtype=np.float64)
                  ).astype(np.float32), dtype=torch.float32)
-    yf = y.to(torch.float32)
-    frac = yf[..., 0:1, :] * inv_p[0]
-    for i in range(1, K):
-        frac = frac + yf[..., i:i + 1, :] * inv_p[i]
-    vhat = torch.round(frac).to(torch.int64)
+    vhat = torch.round(_vhat_frac(y.to(torch.float32), inv_p, K)
+                       ).to(torch.int64)
     corr = rns.shoup_mul(vhat, shp("pmod_w", lp1), qv)
     conv = rns.sub_mod(conv, corr, qv)
 

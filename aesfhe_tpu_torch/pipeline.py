@@ -192,7 +192,9 @@ class AESFHE128:
     def encrypt_rounds(self, pair: NibblePair, rounds: int = 10) -> NibblePair:
         """ARK(rk0) then AES rounds 1..rounds (round 10 with plain
         ShiftRows); rounds < 10 is a partial evaluation that equals
-        aes_tables.aes128_partial."""
+        aes_tables.aes128_partial.  In segment mode round 10's ShiftRows
+        is refreshed first when a nibble has no level left, where the
+        reference raises "out of levels"."""
         seg = self.segment_refresh
         pair = self.add_round_key(self._cleanse_input(pair), 0)
         for r in range(1, rounds + 1):
@@ -202,6 +204,12 @@ class AESFHE128:
             # post-SubBytes cleanse (11 levels would not fit the budget)
             pair = self.sub_bytes(pair, cleanse=not seg)
             if r == 10:
+                if seg and min(pair.hi.level, pair.lo.level) == 0:
+                    # the reference refreshes nothing here, and a
+                    # segment's SubBytes ends at level 0 on prod_boot's
+                    # chain: its ShiftRows (one mask product) would run
+                    # out of levels
+                    pair = self._refresh(pair, 0)
                 pair = self.shift_rows(pair)
             else:
                 if not seg:

@@ -39,9 +39,13 @@ Phases, each announced on its own line; any failure exits non-zero
      hoisted), then 2048 random blocks as one pair of zeta16 nibble
      ciphertexts, encrypted fresh at level 54: the forward leg (ARK(rk0)
      and round 1, no refresh) held against aes128_partial(block, key, 1),
-     and the inverse leg (decrypt_rounds on a fresh encryption of that
-     result, segment-refresh schedule with the bootstrap) held against the
-     plaintext; launches must equal key-switches in each leg;
+     the inverse leg (decrypt_rounds on a fresh encryption of that result,
+     segment-refresh schedule with the bootstrap) held against the
+     plaintext, and the ten-round leg (encrypt_rounds(rounds=10) in the
+     segment-refresh schedule with the eager bootstrap, post_boot_cleanses
+     2; block 0 FIPS-197 C.1's plaintext) held against
+     aes128_partial(block, key, 10) and block 0 against FIPS-197 C.1;
+     launches must equal key-switches in each leg;
   9. mesh phase: the multi-device path (parallel.MeshEngine) at prod_boot
      on D ranks, each a spawned process: D = the card count over NCCL with
      two cards or more, else D = 2 ranks sharing the one card over gloo
@@ -50,9 +54,10 @@ Phases, each announced on its own line; any failure exits non-zero
      seed (relin, conj, the bootstrap's Galois keys, the round's rotation
      keys) and keeps its digit shard on a MeshEngine (EngineContext.on_mesh);
      2048 random blocks at the work level 15 go through one bit-sliced
-     round and then the pair-packed refresh's first two bootstraps (the
-     first fills the diagonal cache, the second runs warm; eager: a CUDA
-     graph cannot capture the collectives) with every key-switch sharded
+     round and then the pair-packed refresh's first bootstrap (it fills
+     the diagonal cache; with --mesh-only also the second, which runs warm;
+     eager: a CUDA graph cannot capture the collectives) with every
+     key-switch sharded
      (one all-reduce each).  Rank 0 runs the same inputs through the
      single-device Engine with the same full keys: every output ciphertext
      must be torch.equal, every block equal to the AES oracle and the
@@ -60,10 +65,17 @@ Phases, each announced on its own line; any failure exits non-zero
      key-switches = ks_inner launches, and the ledger's bytes = the
      predicted 2*M*N*8 per key-switch at its level.  The kernel phase also
      times ks_inner at the ranks' shapes (J = pad/D digits, the last rank's
-     padded digits zero) and on an all-zero shard.
+     padded digits zero) and on an all-zero shard;
+ 10. bench phase (after the slice): `python -m aesfhe_tpu_torch bench`'s
+     bitplane and zeta legs in process at N=2^16, 16 levels, 3 iterations,
+     no CPU leg, each printing its JSON line, its output decrypted and held
+     against the AES oracle (one round under round key 1; ARK + S-box),
+     launches equal to key-switches; the kernel phase also times ks_inner
+     at that profile's widest switch.  The flagship phase prints the bench
+     flagship line mapped from its own result.
 The line before the last is a JSON object with one entry per kernel
-(launches summed over the slice, the flagship, the zeta legs and every
-rank of the mesh phase); the last line is
+(launches summed over the slice, the bench legs, the flagship, the zeta
+legs and every rank of the mesh phase); the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -80,7 +92,8 @@ import time
 import numpy as np
 import torch
 
-from aesfhe_tpu_torch import bootstrap, kernels, run_full_aes, zeta_trace
+from aesfhe_tpu_torch import (bench, bootstrap, kernels, run_full_aes,
+                              zeta_trace)
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
@@ -112,6 +125,9 @@ SEED = 0
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")   # FIPS-197 C.1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
 MESH_SEED = SEED + 4
+# bench's bitplane and zeta legs: the root bench.py's default profile
+BENCH_LOGN, BENCH_LEVELS, BENCH_ITERS = 16, 16, 3
+ZETA_ROUNDS = 10
 
 
 T0 = time.perf_counter()
@@ -235,7 +251,8 @@ def ks_inner_shard_case(params, level: int, d: int, rank: int, rng, dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
-def mesh_rank(rank: int, world: int, profile: str, device_type: str) -> dict:
+def mesh_rank(rank: int, world: int, profile: str, device_type: str,
+              boots: int) -> dict:
     """One rank of the mesh phase (the module docstring, phase 9)."""
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh = make_mesh(1, world, device_type)
@@ -280,7 +297,7 @@ def mesh_rank(rank: int, world: int, profile: str, device_type: str) -> dict:
         out = run_full_aes.run_round(maes, st, 1, 1)
         sync()
         round_s = time.perf_counter() - t0
-        zs, boot_s = _refresh_two_pairs(mwrap, out, sync)
+        zs, boot_s = _refresh_pairs(mwrap, out, sync, boots)
     launches = ks_inner.launches
     counters = dict(meng.counters)
     levels = dict(meng.dks.levels)
@@ -314,7 +331,7 @@ def mesh_rank(rank: int, world: int, profile: str, device_type: str) -> dict:
         out1 = run_full_aes.run_round(aes, st, 1, 1)
         sync()
         res["single_round_s"] = time.perf_counter() - t0
-        zs1, res["single_boot_s"] = _refresh_two_pairs(wrap, out1, sync)
+        zs1, res["single_boot_s"] = _refresh_pairs(wrap, out1, sync, boots)
         for k, (a, b) in enumerate(zip(out.bits + zs, out1.bits + zs1)):
             if not torch.equal(a.data, b.data) or a.scale != b.scale:
                 what = f"round plane {k}" if k < 8 else f"bootstrap {k - 8}"
@@ -343,14 +360,14 @@ def mesh_rank(rank: int, world: int, profile: str, device_type: str) -> dict:
     return res
 
 
-def _refresh_two_pairs(wrap: EngineWrapper, st: BitState, sync):
-    """Bootstraps 1 and 2 of the pair-packed refresh (planes 0+i*1 and
-    2+i*3) through the wrapper's eager bootstrap: the first fills the
-    bootstrap key's diagonal cache, the second runs warm.  Returns the two
-    outputs and their seconds."""
+def _refresh_pairs(wrap: EngineWrapper, st: BitState, sync, n: int):
+    """The first n (1 or 2) bootstraps of the pair-packed refresh (planes
+    0+i*1, then 2+i*3) through the wrapper's eager bootstrap: the first
+    fills the bootstrap key's diagonal cache, the second runs warm.
+    Returns the outputs and their seconds."""
     eng = wrap.engine
     outs, secs = [], []
-    for p in (0, 2):
+    for p in (0, 2)[:n]:
         sync()
         t0 = time.perf_counter()
         packed = eng.add(st.bits[p], eng.multiply_i(st.bits[p + 1]))
@@ -367,23 +384,24 @@ def _share(r: dict) -> str:
     return f"{r['allreduce_s']:.3f} s ({r['allreduce_s'] / wall:.0%})"
 
 
-def mesh_phase() -> dict:
-    """The mesh phase in spawned ranks; returns rank 0's record and the
-    launches summed over the ranks."""
+def mesh_phase(boots: int) -> dict:
+    """The mesh phase in spawned ranks with `boots` refresh bootstraps;
+    returns rank 0's record and the launches summed over the ranks."""
     cards = torch.cuda.device_count()
     world, backend = (cards, "nccl") if cards >= 2 else (2, "gloo")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = launch.spawn(mesh_rank, world, PROFILE, "cuda", backend=backend,
-                       timeout_s=900)
+    res = launch.spawn(mesh_rank, world, PROFILE, "cuda", boots,
+                       backend=backend, timeout_s=900)
     r0 = res[0]
     print(f"D={world} ranks over {backend} ({r0['mode']}), pad {r0['pad']} "
           f"digits: {[r['digits'] for r in res]}; spawn to end "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in res:
         print(f"rank {r['rank']}: keygen {r['keygen_s']:.2f} s, round "
-              f"{r['round_s']:.3f} s, bootstraps {r['boot_s'][0]:.3f} s "
-              f"(fills the diagonal cache) and {r['boot_s'][1]:.3f} s; "
+              f"{r['round_s']:.3f} s, bootstraps "
+              f"{[round(b, 3) for b in r['boot_s']]} s (the first fills "
+              f"the diagonal cache); "
               f"{r['keyswitches']} key-switches = {r['launches']} ks_inner "
               f"launches = {r['allreduces']} all-reduces of "
               f"{r['allreduce_bytes']} operand bytes (predicted "
@@ -395,14 +413,15 @@ def mesh_phase() -> dict:
     lv = sorted(r0["levels"].items(), reverse=True)
     print(f"key-switches per level: {lv}", flush=True)
     sb = r0["single_boot_s"]
+    warm = (f", warm bootstrap {r0['boot_s'][1] / sb[1]:.2f}x"
+            if len(sb) > 1 else "")
     print(f"single-device Engine, same call (rank 0, after the mesh; the "
-          f"diagonal cache is shared, so both its bootstraps run warm): "
-          f"round {r0['single_round_s']:.3f} s, bootstraps {sb[0]:.3f} and "
-          f"{sb[1]:.3f} s; mesh / single: round "
-          f"{r0['round_s'] / r0['single_round_s']:.2f}x, warm bootstrap "
-          f"{r0['boot_s'][1] / sb[1]:.2f}x", flush=True)
+          f"diagonal cache is shared, so its bootstraps run warm): "
+          f"round {r0['single_round_s']:.3f} s, bootstraps "
+          f"{[round(b, 3) for b in sb]} s; mesh / single: round "
+          f"{r0['round_s'] / r0['single_round_s']:.2f}x{warm}", flush=True)
     print(f"every output ciphertext equals the single-device Engine's; all "
-          f"{r0['blocks']} blocks equal aes128_partial(block, key, 1); both "
+          f"{r0['blocks']} blocks equal aes128_partial(block, key, 1); the "
           f"bootstraps (exit level {r0['exit_level']}, max | |slot| - 1 | "
           f"{r0['slot_err']:.3e}) decode to the round's bits 0-3", flush=True)
     return dict(rank0=r0, launches=sum(r["launches"] for r in res),
@@ -521,11 +540,12 @@ def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
         raise AssertionError(f"zeta {name}: ks_inner launched {launches} "
                              f"times for {counters['keyswitch']} "
                              f"key-switches")
-    return dict(seconds=s, launches=launches, err=err)
+    return dict(seconds=s, launches=launches, err=err, got=got,
+                bootstraps=counters["bootstrap"])
 
 
-def zeta_phase() -> tuple[dict, dict]:
-    """Keygen and the two zeta legs at PROFILE; returns the legs' records."""
+def zeta_phase() -> list[dict]:
+    """Keygen and the zeta legs at PROFILE; returns the legs' records."""
     torch.cuda.reset_peak_memory_stats()
     zwrap, (xs, tf, sr), keygen_s = zeta_trace.setup(PROFILE, SEED + 2,
                                                      "cuda", bootstrap=True)
@@ -558,7 +578,96 @@ def zeta_phase() -> tuple[dict, dict]:
                    lambda p: zinv.decrypt_rounds(p, rounds=1), state)
     print(f"all {sc // 16} blocks decrypt back to their plaintext",
           flush=True)
-    return fwd, inv
+    # ten rounds in the segment-refresh schedule (the eager bootstrap, the
+    # inverse leg's cipher): the zeta counterpart of the flagship
+    state = run_full_aes.make_state(sc, SEED + 6)
+    want = np.concatenate([aes128_partial(state[b:b + 16], KEY, ZETA_ROUNDS)
+                           for b in range(0, sc, 16)])
+    # time every bootstrap: the segment refreshes and the XOR service's own
+    # (it calls the wrapper's bootstrap for inputs below its BOOT_LEVEL)
+    boot, boots = zwrap.bootstrap, []
+
+    def timed_boot(ct):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = boot(ct)
+        torch.cuda.synchronize()
+        boots.append((time.perf_counter() - t0, ct.scale))
+        return out
+
+    zinv.refresh = zwrap.bootstrap = timed_boot
+    try:
+        ten = zeta_leg(zinv, f"{ZETA_ROUNDS} rounds", state,
+                       lambda p: zinv.encrypt_rounds(p, rounds=ZETA_ROUNDS),
+                       want)
+    finally:
+        zinv.refresh = boot
+        del zwrap.bootstrap
+    secs = [b[0] for b in boots]
+    scales = [b[1] for b in boots]
+    # the fused path's bucket of each input (EngineWrapper._bootstrap_fused)
+    buckets = {round(float(np.log2(x)) * 1e4) for x in scales}
+    delta = zwrap.engine.params.scale
+    print(f"zeta {ZETA_ROUNDS} rounds: {len(secs)} bootstraps in "
+          f"{sum(secs):.1f} s ({sum(secs) / ten['seconds']:.0%} of the leg; "
+          f"first {secs[0]:.2f} s, median {np.median(secs):.3f} s, max "
+          f"{max(secs):.2f} s); {len(buckets)} input-scale buckets, "
+          f"scale/Delta {sorted({round(x / delta, 5) for x in scales})}",
+          flush=True)
+    print(f"zeta {ZETA_ROUNDS} rounds: {ten['bootstraps'] / ZETA_ROUNDS:.1f} "
+          f"bootstraps per round; all {sc // 16} blocks equal "
+          f"aes128_partial(block, key, {ZETA_ROUNDS})", flush=True)
+    if ZETA_ROUNDS == 10:
+        if bytes(ten["got"][:16]) != run_full_aes.FIPS_CT:
+            raise AssertionError("zeta: block 0 is not FIPS-197 C.1's "
+                                 "ciphertext")
+        print("zeta: block 0 equals FIPS-197 C.1: "
+              f"{run_full_aes.FIPS_CT.hex()}", flush=True)
+    return [fwd, inv, ten]
+
+
+def bench_phase() -> int:
+    """bench's bitplane and zeta legs in process (no CPU leg): each leg's
+    line printed, its output held against the AES oracle, launches equal to
+    key-switches over the warm-up and the timed iterations.  Returns the
+    launches."""
+    total = 0
+    for mode in ("bitplane", "zeta"):
+        t0 = time.perf_counter()
+        leg = bench.SETUPS[mode](BENCH_LOGN, BENCH_LEVELS, "cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        eng = leg.wrap.engine
+        eng.reset_counters()
+        ks_inner.launches = 0
+        bps, stats, out, leg = bench.run_leg(mode, BENCH_LOGN, BENCH_LEVELS,
+                                             BENCH_ITERS, "cuda", leg=leg)
+        launches = ks_inner.launches
+        counters = dict(eng.counters)
+        bad = bench.check_leg(leg, out)
+        err = ""
+        if mode == "zeta":
+            hi, lo = split_nibbles(leg.want)
+            err = max(phase_error(leg.wrap.decrypt(out.hi), hi),
+                      phase_error(leg.wrap.decrypt(out.lo), lo))
+            err = f", max phase error {err:.3e} zeta16 steps"
+        print(json.dumps(bench.leg_record(mode, leg.blocks, bps, stats, 0.0)),
+              flush=True)
+        print(f"bench {mode}: keygen and encryption {setup_s:.2f} s; "
+              f"{BENCH_ITERS + 1} steps (warm-up included): engine counters "
+              f"{counters}, ks_inner launches {launches}; {bad} of "
+              f"{len(leg.want)} bytes wrong{err}", flush=True)
+        if bad:
+            raise AssertionError(f"bench {mode}: {bad} of {len(leg.want)} "
+                                 f"bytes differ from the AES oracle")
+        if launches <= 0 or launches != counters["keyswitch"]:
+            raise AssertionError(f"bench {mode}: ks_inner launched "
+                                 f"{launches} times for "
+                                 f"{counters['keyswitch']} key-switches")
+        total += launches
+        del leg, out, eng
+        torch.cuda.empty_cache()
+    return total
 
 
 def finish(card: str, cases: list, top: dict, launches: int) -> int:
@@ -624,9 +733,13 @@ def main(argv=None) -> int:
     cases += [ks_inner_shard_case(params, params.top_level, d, d - 1, rng,
                                   dev) for d in (2, 4)]
     cases.append(ks_inner_shard_case(params, 15, 2, 1, rng, dev))
+    # bench's legs: their widest switch, one level below the top of
+    # BENCH_LEVELS (the first product rescales before it relinearizes)
+    cases.append(ks_inner_case(bench.bench_params(BENCH_LOGN, BENCH_LEVELS),
+                               BENCH_LEVELS - 1, None, rng, dev))
     if mesh_only:
         phase("mesh")
-        return finish(card, cases, top, mesh_phase()["launches"])
+        return finish(card, cases, top, mesh_phase(2)["launches"])
 
     phase("slice")
     t0 = time.perf_counter()
@@ -689,6 +802,9 @@ def main(argv=None) -> int:
     slice_launches = launches
     del wrap, aes, eng, st
     torch.cuda.empty_cache()
+
+    phase("bench")
+    bench_launches = bench_phase()
 
     phase("flagship")
     torch.cuda.reset_peak_memory_stats()
@@ -759,6 +875,9 @@ def main(argv=None) -> int:
     if flag_launches <= 0 or flag_launches != res["keyswitches"]:
         raise AssertionError(f"ks_inner launched {flag_launches} times for "
                              f"{res['keyswitches']} key-switches")
+    # bench's flagship line, mapped from this phase's own run
+    print(json.dumps(bench.flagship_record(dict(res, profile=PROFILE))),
+          flush=True)
 
     phase("fused bootstrap")
     if len(inputs) != 4:
@@ -782,13 +901,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("zeta")
-    fwd, inv = zeta_phase()
-    zeta_launches = fwd["launches"] + inv["launches"]
+    zeta_launches = sum(leg["launches"] for leg in zeta_phase())
 
+    # one refresh bootstrap on the mesh here (two with --mesh-only): the
+    # ten zeta rounds need the time
     phase("mesh")
-    mesh = mesh_phase()
-    return finish(card, cases, top, slice_launches + flag_launches
-                  + zeta_launches + mesh["launches"])
+    mesh = mesh_phase(1)
+    return finish(card, cases, top, slice_launches + bench_launches
+                  + flag_launches + zeta_launches + mesh["launches"])
 
 
 if __name__ == "__main__":

@@ -205,13 +205,14 @@ def test_port_imports_no_jax():
         " 'aesfhe_tpu_torch.parallel.mesh_engine',"
         " 'aesfhe_tpu_torch.parallel.dist_ntt', 'aesfhe_tpu_torch.parallel.batch',"
         " 'aesfhe_tpu_torch.parallel.failure', 'aesfhe_tpu_torch.parallel.launch',"
-        " 'aesfhe_tpu_torch.parallel.multihost'} <= set(sys.modules)\n"
+        " 'aesfhe_tpu_torch.parallel.multihost', 'aesfhe_tpu_torch.bench'}"
+        " <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('aesfhe_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43
+    assert int(out.stdout.strip()) >= 44
 
 
 def test_cli_demo_xor_needs_a_card_unless_told_cpu(capsys):
@@ -226,3 +227,62 @@ def test_cli_demo_xor_needs_a_card_unless_told_cpu(capsys):
         main(["demo-xor", "--profile", "tiny", "--device", "cpu"])
     assert done.value.code == 0
     assert "correct=True" in capsys.readouterr().out
+
+
+# the chains of each special-prime count K: 2 (tiny), 3 (test), 4
+# (boot_tiny), 6 (deep), 8 (prod_boot's shape on N=2^10), at a level each
+VHAT_CASES = [("tiny", 4), ("test", 10), ("boot_tiny", 30), ("deep", 20),
+              ("prod_shape_n1024", 16)]
+
+
+def _params_pair(name):
+    if name == "prod_shape_n1024":
+        from aesfhe_tpu.core.params import CKKSParams as JP
+        from aesfhe_tpu_torch.core.params import CKKSParams as TP
+        kw = dict(n=1 << 10, max_level=54, scale_bits=27,
+                  num_special_primes=8, secret_hamming=192)
+        return JP(**kw), TP(**kw)
+    return jparams(name), tparams(name)
+
+
+@pytest.mark.parametrize("name,level", VHAT_CASES)
+def test_mod_down_vhat_at_half_integers(name, level):
+    """The fused mod-down's f32 overshoot estimate v_hat = round(sum_i
+    y_i/p_i) on inputs built so that every coefficient's sum lies within a
+    few 1e-8 of a half-integer, where the float32 summation order decides
+    the rounding: the port's residues equal the reference's compiled
+    mod-down on every coefficient (2 x N of them, both components)."""
+    import functools
+
+    import jax
+    from aesfhe_tpu.core import ops_impl as jops
+    from aesfhe_tpu.core.engine import Engine as JEngine
+    from aesfhe_tpu_torch.core import ops_impl as tops
+    from aesfhe_tpu_torch.core.engine import Engine
+    jp, tp = _params_pair(name)
+    K, lp1, n = tp.num_special, level + 1, tp.n
+    tabs = Engine(tp, device="cpu").tabs
+    ref = jax.jit(functools.partial(jops._mod_down_specials, jp,
+                                    JEngine(jp).tabs), static_argnums=1)
+    rng = np.random.default_rng(level)
+    ps = np.asarray(tp.special_primes, dtype=np.int64)
+    # y_i = d_i * (P/p_i)^-1 mod p_i; pick y, set y_0 so sum_i y_i/p_i sits
+    # at a half-integer to within 40/p_0, and invert to the special limbs
+    y = rng.integers(0, 1 << 62, (2, K, n)) % ps[:, None]
+    rest = (y[:, 1:] / ps[1:, None]).sum(1)
+    y0 = np.round((np.ceil(rest - 0.5) + 0.5 - rest) * ps[0]).astype(np.int64)
+    y[:, 0] = np.clip(y0 + rng.integers(-40, 41, (2, n)), 0, ps[0] - 1)
+    inv_w = np.asarray(tp.md_tables(level)["inv_w"], dtype=np.int64)
+    w = np.array([pow(int(a), -1, int(p)) for a, p in zip(inv_w, ps)])
+    d = torch.as_tensor((y * w[:, None]) % ps[:, None])
+    tr = tabs.rows(np.arange(tp.num_q, tp.num_q + K))
+    spec = tops.ntt_rows(trns.to_mont(d, tr.q.reshape(K, 1),
+                                      tr.r2.reshape(K, 1),
+                                      tr.rinv.reshape(K, 1)), tr)
+    qs = np.asarray(tp.q_primes[:lp1], dtype=np.int64)
+    xq = torch.as_tensor(rng.integers(0, 1 << 62, (2, lp1, n)) % qs[:, None])
+    x = torch.cat([xq, spec], dim=1)
+    got = tops._mod_down_specials(tp, tabs, x, level)
+    want = ref(jnp.asarray(interop.to_numpy(x.int())), level)
+    assert torch.equal(got.int(), interop.to_tensor(np.asarray(want),
+                                                    device="cpu"))

@@ -114,3 +114,69 @@ def test_engine_device_rule():
             interop.ciphertext(residues, p.scale)
     assert Engine(p, device="cpu").device.type == "cpu"
     assert interop.to_tensor(residues, device="cpu").device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# production keygen: OSEntropyRNG, rng= and AESFHE_KEYGEN_RNG=os
+
+def _draws(rng, n=64):
+    """One call of every sampling method keygen and encryption make."""
+    return [rng.choice(n, 8, replace=False), rng.choice(np.array([-1, 1]), 8),
+            rng.random(n), rng.normal(0.0, 3.2, n),
+            rng.integers(0, 97, (3, n), dtype=np.uint32)]
+
+
+def test_os_entropy_rng_has_the_references_methods():
+    """The reference's four sampling methods, each draw of the seeded
+    draw's dtype and shape, and fresh entropy on every call."""
+    def methods(cls):
+        return {m for m in vars(cls) if not m.startswith("_")}
+
+    assert methods(tkeys.OSEntropyRNG) == methods(jkeys._OSEntropyRNG) == \
+        {"choice", "random", "normal", "integers"}
+    rng = tkeys.OSEntropyRNG()
+    got, again = _draws(rng), _draws(rng)
+    for g, w in zip(got, _draws(np.random.default_rng(0)), strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    assert not np.array_equal(got[2], again[2])
+    assert not np.array_equal(got[4], again[4])
+
+
+def test_os_entropy_engines_draw_different_secret_keys():
+    """Two engines on OSEntropyRNG: different ternary secret keys, each of
+    the profile's Hamming weight (boot_tiny: h = 16)."""
+    p = get_params("boot_tiny")
+    sks = [Engine(p, device="cpu", rng=tkeys.OSEntropyRNG())
+           .create_secret_key().s_coeff for _ in range(2)]
+    for s in sks:
+        assert int(np.count_nonzero(s)) == p.secret_hamming == 16
+        assert set(np.unique(s)) <= {-1, 0, 1}
+    assert not np.array_equal(sks[0], sks[1])
+
+
+def test_keygen_rng_env_selects_os_entropy(monkeypatch):
+    """AESFHE_KEYGEN_RNG=os makes Engine(rng=None) draw from OSEntropyRNG;
+    without it the engine keeps a numpy Generator; an explicit rng wins."""
+    p = get_params("tiny")
+    monkeypatch.setenv("AESFHE_KEYGEN_RNG", "os")
+    assert isinstance(Engine(p, device="cpu").rng, tkeys.OSEntropyRNG)
+    seeded = np.random.default_rng(0)
+    assert Engine(p, device="cpu", rng=seeded).rng is seeded
+    monkeypatch.delenv("AESFHE_KEYGEN_RNG")
+    assert isinstance(Engine(p, device="cpu").rng, np.random.Generator)
+
+
+def test_os_entropy_key_family_encrypts_and_decrypts():
+    """A tiny-profile key family on OSEntropyRNG through the wrapper:
+    encrypt, a relinearized product and a rotation decrypt right."""
+    from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
+    w = EngineWrapper(XORConfig(profile="tiny", rotation_steps=(1,),
+                                device="cpu"), rng=tkeys.OSEntropyRNG())
+    assert isinstance(w.engine.rng, tkeys.OSEntropyRNG)
+    x = np.random.default_rng(5).uniform(-1, 1, w.engine.slot_count)
+    ct = w.encrypt(x)
+    assert np.max(np.abs(np.real(w.decrypt(ct)) - x)) < 1e-3
+    assert np.max(np.abs(np.real(w.decrypt(w.multiply(ct, ct))) - x * x)) \
+        < 1e-3
+    assert np.max(np.abs(np.real(w.decrypt(w.rotate(ct, 1)))
+                         - np.roll(x, 1))) < 1e-3

@@ -10,9 +10,17 @@ scale.  The reference's JAX compiles dominate their time (~1 s per new
 level and op on the CPU), so the same functions on the test profile are
 `slow`.
 
+Also in the default run: both packages' ten-round segment-refresh schedule
+over level arithmetic alone (which stage refreshes, bootstraps or cleanses,
+at which level).
+
 `slow` also: one forward and one inverse round through both packages on
 deep and on prod_boot's primes at N=2^10, compared after every stage, and
-the port's forward round on deep against the AES oracle.
+the port's forward round on deep against the AES oracle; the refresh path:
+the port's boot_tiny cipher through its bootstrap (3 rounds against the
+oracle, 10 to FIPS-197 C.1), and on prod_boot's primes at N=2^10 one
+segment-refreshed round stage by stage and ten rounds through both
+packages with a shared recrypt in place of the bootstrap.
 
     python -m pytest tests/test_torch_zeta.py -q [-m slow -s]
 """
@@ -523,3 +531,316 @@ def test_byte_domain_services_match_reference(hp_engine):
     _same(lo, jlo, "extract_nibbles lo")
     assert np.array_equal(_decode16(twrap, hi, sc), x >> 4)
     assert np.array_equal(_decode16(twrap, lo, sc), x & 0xF)
+
+
+# --------------------------------------------------------------------------
+# the segment-refresh schedule of ten rounds (level arithmetic only)
+
+# Levels each stage consumes after a refresh on prod_boot's chain, and the
+# bootstrap's exit level there, as the real ops give them on prod_boot's
+# primes (the ten-round leg of chip_smoke.py on the card; on the CPU, the
+# port's rounds at N=2^10 with a recrypt refresh, test below): a plain-key
+# XOR 5, a power basis 4, an S-box LUT 4, a GF(2) LUT 3, GF(3) 4 (hi) and
+# 3 (lo), the masked rotations 1, a nibble XOR 6, a cleanse 6, a ShiftRows
+# mask 1.  Higher up the chain some stages take a level less, so this
+# model's round 1 bootstraps 6 times where the real one does 11; rounds
+# 2-10 start at level 3 and match it.
+BOOT_EXIT = 20
+LUT_DEPTH = {"sbox_hi2d": 4, "sbox_lo2d": 4, "gf2_hi2d": 3, "gf2_lo2d": 3,
+             "gf3_hi2d": 4, "gf3_lo2d": 3}
+
+
+class _Lvl:
+    """A ciphertext reduced to its level."""
+
+    def __init__(self, level):
+        self.level = level
+        self.scale = 1.0
+
+
+def _level_cipher(pkg):
+    """(cipher, event log) for one package: its own AESFHE128,
+    XORService, AESFHETransformer and segment schedule over level-only
+    stand-ins for the arithmetic; the refresh and the XOR's own bootstrap
+    record the level they were called at and return BOOT_EXIT."""
+    from types import SimpleNamespace
+    if pkg == "ref":
+        cls = (JAES, JXORService, JTransformer, JShiftRows)
+    else:
+        cls = (AESFHE128, XORService, AESFHETransformer, AESFHEShiftRows)
+    aes_cls, xs_cls, tf_cls, sr_cls = cls
+    log = []
+
+    def boot(kind):
+        def f(ct):
+            log.append((kind, ct.level))
+            return _Lvl(BOOT_EXIT)
+        return f
+
+    def spend(ct, d):
+        if ct.level < d:
+            raise RuntimeError("out of levels: bootstrap required")
+        return _Lvl(ct.level - d)
+
+    eng = SimpleNamespace(params=SimpleNamespace(rescale_primes=1),
+                          slot_count=16, use_bootstrap=True)
+    wrap = SimpleNamespace(engine=eng, boot_key=True,
+                           bootstrap=boot("xor-boot"))
+    xs = xs_cls(wrap)
+    tf = tf_cls(wrap, xs)
+    sr = sr_cls.__new__(sr_cls)
+    aes = aes_cls(wrap, xs, tf, sr, KEY, refresh=boot("refresh"))
+    aes.segment_refresh = True
+    aes.post_boot_cleanses = 2
+    names = {}
+    for caches in [aes._sbox2d] + [tf._gf2d[m] for m in (2, 3)]:
+        for c in caches:
+            names[id(c.load_coeffs())] = c.path.name.split("_coeffs")[0]
+
+    def cleanse(ct, modulus=16):
+        log.append(("cleanse", ct.level))
+        return spend(ct, 6)
+
+    def mix_terms(tms, matrix, inverse):
+        low = min(c.level for p in tms.values() for c in p)
+        return [NibblePair(_Lvl(low - 1), _Lvl(low - 1)) for _ in range(4)]
+
+    xs._xor_with_plain_nibbles = lambda ct, k: spend(ct, 5)
+    xs._build_power_basis = lambda ct: {1: spend(ct, 4)}
+    xs.cleanse = cleanse
+    xs._lut2d_cipher = lambda a, b, basis, coeffs: spend(
+        _Lvl(min(a.level, b.level)), 6)
+    tf._bilinear = lambda bx, by, coeffs: spend(
+        _Lvl(min(bx[1].level, by[1].level)), LUT_DEPTH[names[id(coeffs)]])
+    tf._mix_terms = mix_terms
+    sr.shift_rows_simd = lambda ct, inverse=False: spend(ct, 1)
+    ark = aes.add_round_key
+
+    def add_round_key(pair, r):
+        log.append(("ark", r))
+        return ark(pair, r)
+
+    aes.add_round_key = add_round_key
+    return aes, log
+
+
+def _rounds(log):
+    """The events of each round (between two AddRoundKeys)."""
+    out, cur = [], []
+    for ev in log:
+        if ev[0] == "ark":
+            out.append(cur)
+            cur = []
+        else:
+            cur.append(ev)
+    return out[1:]
+
+
+def test_segment_schedule_matches_reference_over_ten_rounds():
+    """Both packages' encrypt_rounds(rounds=10) in segment mode over the
+    level arithmetic above, from a fresh pair at prod_boot's top level 54:
+    the same refreshes, XOR bootstraps and cleanses at the same levels in
+    every round (the port first cleanses the fresh input, so the reference
+    starts from that cleansed pair).  In round 10 the reference's ShiftRows
+    finds a nibble at level 0 and raises; the port refreshes it first."""
+    taes, tlog = _level_cipher("port")
+    jaes, jlog = _level_cipher("ref")
+    out = taes.encrypt_rounds(NibblePair(_Lvl(54), _Lvl(54)), rounds=10)
+    assert tlog[:2] == [("cleanse", 54)] * 2
+    with pytest.raises(RuntimeError, match="out of levels"):
+        jaes.encrypt_rounds(NibblePair(_Lvl(48), _Lvl(48)), rounds=10)
+    trounds, jrounds = _rounds(tlog[2:]), _rounds(jlog + [("ark", 10)])
+    assert len(trounds) == len(jrounds) == 10
+    assert trounds[:9] == jrounds[:9]
+    # round 10: the same events up to the raise, then the port's refresh
+    # of the level-0 pair before ShiftRows
+    n = len(jrounds[9])
+    assert trounds[9][:n] == jrounds[9]
+    assert [e for e in trounds[9][n:] if e[0] != "cleanse"][:2] == \
+        [("refresh", 0)] * 2
+    boots = [sum(e[0] != "cleanse" for e in r) for r in trounds]
+    print(f"\nbootstraps per round (refreshes + XOR inputs): {boots}, "
+          f"{sum(boots)} in all; exit level {out.hi.level}")
+    # rounds 2-9 repeat the card's measured pattern: before SubBytes at 3,
+    # the shift-mix's input at 0, its GF multiples at 1/1 and 0/1, eight
+    # XOR inputs at 7, before AddRoundKey at 2
+    steady = ([("refresh", 3)] * 2 + [("refresh", 0)] * 2
+              + [("refresh", 1)] * 2 + [("refresh", 0), ("refresh", 1)]
+              + [("xor-boot", 7)] * 8 + [("refresh", 2)] * 2)
+    for r in trounds[1:9]:
+        assert [e for e in r if e[0] != "cleanse"] == steady
+    assert boots[1:9] == [18] * 8
+
+
+# --------------------------------------------------------------------------
+# slow: the refresh path with real bootstraps (boot_tiny) and, on prod_boot's
+# primes at N=2^10, the segment schedule through both packages
+
+FIPS_PT = bytes.fromhex("00112233445566778899aabbccddeeff")
+FIPS_CT = bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a")
+
+
+@pytest.fixture(scope="module")
+def boot_tiny_cipher():
+    """The port's boot_tiny zeta cipher refreshed by its bootstrap between
+    rounds, as the reference's tests/test_pipeline.py boot_cipher."""
+    from aesfhe_tpu_torch import zeta_trace
+    wrap, (xs, tf, sr), _ = zeta_trace.setup("boot_tiny", SEED, "cpu",
+                                             bootstrap=True)
+    return AESFHE128(wrap, xs, tf, sr, KEY, refresh=wrap.bootstrap)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("rounds", [3, 10])
+def test_boot_tiny_rounds_with_bootstrap(boot_tiny_cipher, rounds):
+    """3 rounds against the AES oracle, and all 10 to FIPS-197 C.1 in
+    every block, through real bootstraps."""
+    aes = boot_tiny_cipher
+    eng = aes.eng.engine
+    sc = eng.slot_count
+    if rounds == 10:
+        state = np.tile(np.frombuffer(FIPS_PT, dtype=np.uint8), sc // 16)
+        want = np.tile(np.frombuffer(FIPS_CT, dtype=np.uint8), sc // 16)
+    else:
+        state = np.random.default_rng(7).integers(0, 256, sc, dtype=np.uint8)
+        want = np.concatenate([aes128_partial(state[b:b + 16], KEY, rounds)
+                               for b in range(0, sc, 16)])
+    eng.reset_counters()
+    out = aes.encrypt_rounds(aes.encrypt_state(state), rounds=rounds)
+    print(f"\nboot_tiny, {rounds} rounds: {eng.counters['bootstrap']} "
+          f"bootstraps, exit level {out.hi.level}")
+    assert eng.counters["bootstrap"] > 0
+    assert np.array_equal(aes.decrypt_state(out), want)
+
+
+class _Recrypt:
+    """A refresh both packages can share: decrypt with the reference,
+    encrypt the slots afresh (the reference's encryption, seeded by the
+    call's index within its package) and drop to BOOT_EXIT, prod_boot's
+    bootstrap exit level; the same input gives the same output in either
+    package.  (A real bootstrap on prod_boot's primes at N=2^10 raises in
+    EvalMod in both packages: tests/test_torch_fused_boot.py.)  Records
+    every input as (residues, level, scale)."""
+
+    def __init__(self, jwrap):
+        self.jwrap = jwrap
+        self.seen = {"ref": [], "port": []}
+
+    def __call__(self, side):
+        from aesfhe_tpu.core.ciphertext import Ciphertext as JCiphertext
+        import jax.numpy as jnp
+
+        def refresh(ct):
+            data = (interop.to_numpy(ct.data) if side == "port"
+                    else _u32(ct.data))
+            k = len(self.seen[side])
+            self.seen[side].append((data, ct.level, ct.scale))
+            jw = self.jwrap
+            v = jw.decrypt(JCiphertext(jnp.asarray(data), ct.scale))
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jkeys, "_rng", np.random.default_rng((SEED, k)))
+                fresh = jw.engine._drop(jw.encrypt(v), BOOT_EXIT)
+            return fresh if side == "ref" else _ct(fresh)
+        return refresh
+
+
+@pytest.fixture(scope="module")
+def seg_sides(request):
+    """(reference AES, port AES, recrypt) on prod_boot's primes at N=2^10
+    in the segment schedule (post_boot_cleanses=2), both refreshed by the
+    shared recrypt, both bootstrapping low XOR inputs through it (the
+    reference's use_bootstrap, the port's bootstrap key)."""
+    jaes, taes = _round_sides("prod_primes_n1024", request)
+    rec = _Recrypt(jaes.eng)
+    jaes.eng.engine.use_bootstrap = True
+    taes.eng.boot_key = True
+    for side, aes in (("ref", jaes), ("port", taes)):
+        aes.eng.bootstrap = aes.refresh = rec(side)
+        aes.segment_refresh = True
+        aes.post_boot_cleanses = 2
+    return jaes, taes, rec
+
+
+def _same_inputs(rec, n=None):
+    """The refreshes' inputs, pairwise equal across the packages."""
+    ref, port = rec.seen["ref"], rec.seen["port"]
+    n = len(ref) if n is None else n
+    assert len(ref) >= n and len(port) >= n
+    for k, ((jd, jl, js), (td, tl, ts)) in enumerate(zip(ref[:n], port[:n])):
+        assert (jl, js) == (tl, ts), f"refresh {k}"
+        assert np.array_equal(jd, td), f"refresh {k}"
+    return n
+
+
+@pytest.mark.slow
+def test_segment_round_stages_match_reference(seg_sides):
+    """One segment-refreshed round, stage by stage through both packages
+    (each stage's refreshes and cleanses included), every refresh input
+    equal; then encrypt_rounds(rounds=1) whole, the reference given the
+    cleansed input the port makes itself (its logged departure)."""
+    jaes, taes, rec = seg_sides
+    sc = taes.eng.engine.slot_count
+    state = np.random.default_rng(SEED).integers(0, 256, sc, dtype=np.uint8)
+    a0, s1, m1, c1 = _oracle(state, taes.round_keys)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jkeys, "_rng", np.random.default_rng(SEED))
+        jfwd = jaes.encrypt_state(state)
+    seg = taes.SEG_STAGE_DEPTH
+
+    def cleanse(a, p):
+        return type(p)(a.xor.cleanse(p.hi), a.xor.cleanse(p.lo))
+
+    out = _stages_equal(jaes, taes, jfwd, [
+        ("cleanse", cleanse, state),
+        ("ark0", lambda a, p: a.add_round_key(p, 0), a0),
+        ("refresh", lambda a, p: a._refresh(p, seg), a0),
+        ("sub", lambda a, p: a.sub_bytes(p, cleanse=False), s1),
+        ("shift-mix", lambda a, p: a.shift_mix(p), m1),
+        ("refresh", lambda a, p: a._refresh(p, seg), m1),
+        ("ark1", lambda a, p: a.add_round_key(p, 1), c1)],
+        "prod_primes_n1024: segment round")
+    assert np.array_equal(taes.decrypt_state(out), c1)
+    n = _same_inputs(rec)
+    assert n == len(rec.seen["port"]) > 0
+    jin = cleanse(jaes, jfwd)
+    got = taes.encrypt_rounds(NibblePair(_ct(jfwd.hi), _ct(jfwd.lo)), 1)
+    want = jaes.encrypt_rounds(jin, 1)
+    _same(got.hi, want.hi, "whole round hi")
+    _same(got.lo, want.lo, "whole round lo")
+    _same_inputs(rec)
+    print(f"{n} refreshes in the round")
+
+
+@pytest.mark.slow
+def test_segment_ten_rounds_on_prod_primes(seg_sides):
+    """encrypt_rounds(rounds=10) in the segment schedule through both
+    packages, every refresh input equal: the reference raises "out of
+    levels" at round 10's ShiftRows (its SubBytes ends at level 0 and
+    nothing refreshes it); the port refreshes there, and every block equals
+    aes128_partial(block, key, 10), block 0 FIPS-197 C.1."""
+    jaes, taes, rec = seg_sides
+    for side in rec.seen:
+        rec.seen[side].clear()
+    sc = taes.eng.engine.slot_count
+    state = np.random.default_rng(SEED + 1).integers(0, 256, sc,
+                                                     dtype=np.uint8)
+    state[:16] = np.frombuffer(FIPS_PT, dtype=np.uint8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jkeys, "_rng", np.random.default_rng(SEED + 1))
+        jpair = jaes.encrypt_state(state)
+    tpair = NibblePair(_ct(jpair.hi), _ct(jpair.lo))
+    jpair = type(jpair)(jaes.xor.cleanse(jpair.hi), jaes.xor.cleanse(jpair.lo))
+    with pytest.raises(RuntimeError, match="out of levels"):
+        jaes.encrypt_rounds(jpair, rounds=10)
+    out = taes.encrypt_rounds(tpair, rounds=10)
+    n = _same_inputs(rec)
+    extra = rec.seen["port"][n:]
+    assert [lvl for _, lvl, _ in extra][:2] == [0, 0]
+    got = taes.decrypt_state(out)
+    want = np.concatenate([aes128_partial(state[b:b + 16], KEY, 10)
+                           for b in range(0, sc, 16)])
+    assert np.array_equal(got, want)
+    assert bytes(got[:16]) == FIPS_CT
+    print(f"\n{len(rec.seen['port'])} refreshes over ten rounds, the "
+          f"reference's first {n} equal; the port's round 10 adds "
+          f"{len(extra)} from the level-0 ShiftRows")
