@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .core import ks_inner as ks_inner_mod
+from .core import ntt as ntt_mod
 from .core import ops_impl
 from .core.ciphertext import Ciphertext, Plaintext
 from .core.keys import GaloisKeySet, gen_rotation_keys
@@ -710,13 +711,15 @@ class FusedBootstrap:
 
     On a CUDA device the constructor bootstraps `sample_ct` eagerly (the
     warm-up: it fills every lazy device cache the bootstrap reads -- the
-    diagonal stacks, the row tables and constants, the Galois permutations,
-    the scalar encodings, the kernel's row vectors), keeps that result in
-    `warm_out`, then captures the bootstrap from a static input buffer into
-    one graph.  A capture that would upload, or that grows any cache, raises:
-    nothing falls back to the eager path.  The engine counters and
-    ks_inner.launches tick once during the capture, when nothing runs; they
-    are put back, and every replay adds the capture's deltas.  The instance
+    diagonal stacks, the row tables and constants with the NTT kernels' row
+    vectors, the Galois permutations, the scalar encodings, the key-switch
+    kernel's row vectors; the twiddle tables come with the engine's
+    DeviceTables), keeps that result in `warm_out`, then captures the
+    bootstrap from a static input buffer into one graph.  A capture that
+    would upload, or that grows any cache, raises: nothing falls back to
+    the eager path.  The engine counters and the kernels' launch counts
+    tick once during the capture, when nothing runs; they are put back,
+    and every replay adds the capture's deltas.  The instance
     holds every tensor the graph reads, since a graph keeps raw pointers.
 
     On the CPU nothing is captured: __call__ runs the eager bootstrap at the
@@ -750,13 +753,16 @@ class FusedBootstrap:
     def _caches(self) -> dict:
         eng = self.engine
         return dict(diags=self.bk.diags, rows=eng.tabs._rows,
-                    consts=eng.tabs._consts, perms=eng._perm_cache,
-                    scalars=eng._consts_cache, trivial=eng._trivial_cache,
+                    ntt_rows=eng.tabs.ntt._rows, consts=eng.tabs._consts,
+                    perms=eng._perm_cache, scalars=eng._consts_cache,
+                    trivial=eng._trivial_cache,
                     ks_rows=ks_inner_mod._rows_dev)
 
     def _tally(self) -> dict:
         t = dict(self.engine.counters)
         t["ks_inner_launches"] = ks_inner_mod.launches
+        t["ntt_fwd_launches"] = ntt_mod.launches_fwd
+        t["ntt_inv_launches"] = ntt_mod.launches_inv
         t["diag_hits"] = self.bk.diag_hits
         return t
 
@@ -764,6 +770,10 @@ class FusedBootstrap:
         for k, v in deltas.items():
             if k == "ks_inner_launches":
                 ks_inner_mod.launches += v
+            elif k == "ntt_fwd_launches":
+                ntt_mod.launches_fwd += v
+            elif k == "ntt_inv_launches":
+                ntt_mod.launches_inv += v
             elif k == "diag_hits":
                 self.bk.diag_hits += v
             else:

@@ -1,21 +1,38 @@
-"""Negacyclic NTT over RNS limbs in torch.
+"""Negacyclic NTT over RNS limbs: the CUDA kernels' wrappers and their
+plain torch versions.
 
-Counterpart of `aesfhe_tpu/core/ntt.py` (and of the `ops_impl.ntt_rows` /
-`intt_rows` contract, which the reference also meets with its MXU 4-step
-NTT): Cooley-Tukey with the psi-twist merged into the twiddles, natural
+Counterpart of `aesfhe_tpu/core/ntt.py` and of the `ops_impl.ntt_rows` /
+`intt_rows` contract, which the reference meets on its accelerator with the
+MXU 4-step NTT (`aesfhe_tpu/core/mxu_ntt.py:ntt_fwd_mxu`/`ntt_inv_mxu`):
+Cooley-Tukey with the psi-twist merged into the twiddles, natural
 coefficient order in, bit-reversed evaluation order out; the inverse uses
 Gentleman-Sande butterflies on bit-reversed input.  Output slot i holds the
 evaluation at psi^(2*bitrev(i)+1), the order `params.galois_perm` indexes.
 
 Data are int64 tensors holding Montgomery residues; twiddles are plain
 constants, so a twiddle product (x*w mod q) keeps the Montgomery form.
+
+`ntt_fwd`/`ntt_inv` take the data and an `NTTRows` (a row selection of one
+`DeviceNTT`, the tables of a prime set on one device).  On a CPU tensor
+they compute the plain version (`ntt_fwd_plain`/`ntt_inv_plain`); on a
+CUDA tensor they launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu`
+(design note there) or raise.  `launches_fwd`/`launches_inv` count the
+kernel launches (one per call, whatever its passes).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from .. import kernels
 from . import rns
+
+launches_fwd = 0
+launches_inv = 0
+MAX_LOGN = 17            # the kernels' largest ring (csrc/ntt.cu kMaxLog)
+ONE_PASS_LOGN = 12       # up to here one pass, no scratch (kOnePassLog)
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -77,8 +94,9 @@ class NTTTables:
         self.q = np.asarray(primes, dtype=np.uint32)
 
 
-def ntt_fwd(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Forward negacyclic NTT.
+def ntt_fwd_plain(x: torch.Tensor, w: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """Forward negacyclic NTT, the kernel's plain version.
 
     x: int64 [..., L, N] (natural coefficient order); w: int64 [L, N];
     q: int64 [L].  Returns int64 [..., L, N] in bit-reversed eval order.
@@ -104,9 +122,9 @@ def ntt_fwd(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def ntt_inv(x: torch.Tensor, wi: torch.Tensor, q: torch.Tensor,
-            ninv: torch.Tensor) -> torch.Tensor:
-    """Inverse negacyclic NTT: bit-reversed eval order -> natural order.
+def ntt_inv_plain(x: torch.Tensor, wi: torch.Tensor, q: torch.Tensor,
+                  ninv: torch.Tensor) -> torch.Tensor:
+    """Inverse negacyclic NTT, the kernel's plain version: bit-reversed eval order -> natural order.
     Each stage writes u + v and (u - v + q) * w, then one remainder."""
     shape = x.shape
     n, L = shape[-1], shape[-2]
@@ -127,3 +145,205 @@ def ntt_inv(x: torch.Tensor, wi: torch.Tensor, q: torch.Tensor,
         t *= 2
         m //= 2
     return rns.shoup_mul(x, ninv.reshape(L, 1), q.reshape(L, 1))
+
+
+def shoup_table(w: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """floor(w * 2^32 / q) per entry, uint32, for w < q [L, ...], q [L]."""
+    w = np.asarray(w, dtype=np.uint64)
+    qq = np.asarray(q, dtype=np.uint64).reshape((-1,) + (1,) * (w.ndim - 1))
+    return ((w << np.uint64(32)) // qq).astype(np.uint32)
+
+
+def kernel_tables(w, wi, ninv, q) -> dict:
+    """The kernels' host tables (uint32): w, w_sh, wi, wi_sh [L, N] and the
+    per-row constants rowc [L, 5] = (q, ninv, ninv_sh, wi[1]*ninv mod q,
+    its companion): the inverse's last stage multiplies u+v by ninv and
+    u-v by wi[1]*ninv."""
+    qh = np.asarray(q, dtype=np.uint64)
+    ninv = np.asarray(ninv, dtype=np.uint64)
+    wi1n = np.asarray(wi, dtype=np.uint64)[:, 1] * ninv % qh
+    rowc = np.stack([qh, ninv, shoup_table(ninv, qh), wi1n,
+                     shoup_table(wi1n, qh)], axis=1).astype(np.uint32)
+    return dict(w=np.asarray(w, dtype=np.uint32), w_sh=shoup_table(w, qh),
+                wi=np.asarray(wi, dtype=np.uint32), wi_sh=shoup_table(wi, qh),
+                rowc=rowc)
+
+
+def _bits32(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 host values -> int32 tensor with the same bits on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32)).to(device)
+
+
+class DeviceNTT:
+    """The NTT tables of one prime set on one device, uploaded once: the
+    plain version's int64 w, wi [Lt, N], q, ninv [Lt]; on a CUDA device
+    also the kernels' 32-bit tables (uint32 bits in int32 tensors): w, w_sh,
+    wi, wi_sh [Lt, N] and the per-row constants [Lt, 5] (q, ninv, ninv_sh,
+    wi[1]*ninv mod q and its companion, the inverse's folded last stage).
+    `rows(sel)` returns the cached `NTTRows` of a row selection."""
+
+    def __init__(self, w, wi, ninv, q, device):
+        self.device = torch.device(device)
+        w = np.asarray(w, dtype=np.uint32)
+        wi = np.asarray(wi, dtype=np.uint32)
+        ninv = np.asarray(ninv, dtype=np.uint64)
+        qh = np.asarray(q, dtype=np.uint64)
+        self.n = w.shape[-1]
+        if self.n < 2 or self.n & (self.n - 1):
+            raise ValueError(f"NTT tables of N={self.n}: not a power of two")
+
+        def dev64(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                   device=self.device)
+
+        self.w, self.wi = dev64(w), dev64(wi)
+        self.q, self.ninv = dev64(qh), dev64(ninv)
+        self._rows: dict[tuple, NTTRows] = {}
+        if self.device.type == "cuda":
+            k = kernel_tables(w, wi, ninv, qh)
+            self.k_w, self.k_wsh, self.k_wi, self.k_wish, self.k_rowc = (
+                _bits32(k[name], self.device)
+                for name in ("w", "w_sh", "wi", "wi_sh", "rowc"))
+
+    def rows(self, rows) -> "NTTRows":
+        key = tuple(int(r) for r in rows)
+        tr = self._rows.get(key)
+        if tr is None:
+            tr = NTTRows(self, key)
+            self._rows[key] = tr
+        return tr
+
+
+class NTTRows:
+    """A row selection of a DeviceNTT: the table row of each data row, on
+    the device as an int32 vector for the kernels, and the plain version's
+    q, ninv and (on demand) w, wi rows: a view when the rows are one
+    contiguous run, else gathered per call."""
+
+    def __init__(self, tabs: DeviceNTT, rows: tuple[int, ...]):
+        self.tabs = tabs
+        self.L = len(rows)
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=tabs.device)
+        self.rows_dev = idx.to(torch.int32)
+        self.q = tabs.q[idx]
+        self.ninv = tabs.ninv[idx]
+        runs = []
+        for r in rows:
+            if runs and runs[-1][1] == r:
+                runs[-1][1] = r + 1
+            else:
+                runs.append([r, r + 1])
+        self._runs = runs
+
+    def _take(self, full):
+        if len(self._runs) == 1:
+            a, b = self._runs[0]
+            return full[a:b]
+        return torch.cat([full[a:b] for a, b in self._runs])
+
+    def w(self):
+        return self._take(self.tabs.w)
+
+    def wi(self):
+        return self._take(self.tabs.wi)
+
+
+def _check(name: str, x: torch.Tensor, t: NTTRows):
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: x must be int64, got {x.dtype}")
+    if x.dim() < 2:
+        raise ValueError(f"{name}: x must be [..., L, N], got "
+                         f"{tuple(x.shape)}")
+    L, n = x.shape[-2], x.shape[-1]
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"{name}: N={n} is not a power of two >= 2")
+    if n != t.tabs.n or L != t.L:
+        raise ValueError(f"{name}: x has [L, N] = [{L}, {n}], the tables "
+                         f"[{t.L}, {t.tabs.n}]")
+    td = t.tabs.device
+    if x.device.type != td.type or (td.index is not None
+                                    and x.device.index != td.index):
+        raise ValueError(f"{name}: x on {x.device}, tables on {td}")
+
+
+def ntt_fwd(x: torch.Tensor, t: NTTRows) -> torch.Tensor:
+    """Forward NTT of x int64 [..., L, N] (natural order) over the rows of
+    t -> int64 [..., L, N] canonical residues in bit-reversed eval order."""
+    _check("ntt_fwd", x, t)
+    if x.device.type == "cpu":
+        return ntt_fwd_plain(x, t.w(), t.q)
+    if x.device.type != "cuda":
+        raise ValueError(f"ntt_fwd: unsupported device {x.device}")
+    y = _launch("ntt_fwd_launch", x, t, t.tabs.k_w, t.tabs.k_wsh)
+    global launches_fwd
+    launches_fwd += 1
+    return y
+
+
+def ntt_inv(x: torch.Tensor, t: NTTRows) -> torch.Tensor:
+    """Inverse NTT of x int64 [..., L, N] (bit-reversed eval order) over the
+    rows of t -> int64 [..., L, N] canonical residues in natural order."""
+    _check("ntt_inv", x, t)
+    if x.device.type == "cpu":
+        return ntt_inv_plain(x, t.wi(), t.q, t.ninv)
+    if x.device.type != "cuda":
+        raise ValueError(f"ntt_inv: unsupported device {x.device}")
+    y = _launch("ntt_inv_launch", x, t, t.tabs.k_wi, t.tabs.k_wish)
+    global launches_inv
+    launches_inv += 1
+    return y
+
+
+def _launch(fn_name: str, x, t: NTTRows, w, wsh) -> torch.Tensor:
+    """One kernel call on the current stream: x is read through its batch
+    and row strides (copied only when its last axis is strided); no host
+    synchronisation, so it runs inside a CUDA graph capture."""
+    L, n = x.shape[-2], x.shape[-1]
+    logn = n.bit_length() - 1
+    if logn > MAX_LOGN:
+        raise ValueError(f"NTT kernel: N=2^{logn} above 2^{MAX_LOGN}")
+    xb = x.reshape(-1, L, n)
+    if xb.stride(-1) != 1:
+        xb = xb.contiguous()
+    B = xb.shape[0]
+    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    if y.numel() == 0:
+        return y
+    scratch = (torch.empty((B, L, n), dtype=torch.int32, device=x.device)
+               if logn > ONE_PASS_LOGN else None)
+    fn = getattr(_library(), fn_name)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(xb.data_ptr(), xb.stride(0), xb.stride(1), y.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), w.data_ptr(),
+             wsh.data_ptr(), t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(),
+             B, L, logn, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+    return y
+
+
+def _library():
+    lib = kernels.load("ntt")
+    for fn in (lib.ntt_fwd_launch, lib.ntt_inv_launch):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_longlong] + [ctypes.c_void_p] * 6 + \
+                [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def bytes_moved(B: int, L: int, n: int) -> int:
+    """Least bytes a transform must move: each int64 input word read once,
+    each int64 output word written once."""
+    return 16 * B * L * n
+
+
+def int_mults(B: int, L: int, n: int, inverse: bool = False) -> int:
+    """32-bit integer multiplies of the kernels' arithmetic: three per
+    Shoup product, one product per butterfly (N/2 * logN a row), and the
+    inverse's folded last stage one more per butterfly."""
+    logn = n.bit_length() - 1
+    per_row = 3 * (n // 2) * (logn + (1 if inverse else 0))
+    return B * L * per_row

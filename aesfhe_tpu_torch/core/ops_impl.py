@@ -20,42 +20,24 @@ from .params import CKKSParams
 
 
 class _RowTables:
-    """Per-prime constants of one row selection (cached), plus twiddle
-    tables sliced on demand: a view when the rows are one contiguous run."""
+    """Per-prime constants of one row selection (cached), and its NTT rows
+    (the kernels' row vector into the full twiddle tables)."""
 
     def __init__(self, tabs: "DeviceTables", rows: tuple[int, ...]):
         idx = torch.as_tensor(rows, dtype=torch.int64, device=tabs.device)
-        self._tabs = tabs
         self.q = tabs.q[idx]
         self.qinv = tabs.qinv[idx]
         self.r2 = tabs.r2[idx]
         self.rinv = tabs.rinv[idx]
-        self.ninv = tabs.ninv[idx]
         self.q32 = rns.narrow(self.q)
         self.qinv32 = rns.narrow(self.qinv)
-        runs = []
-        for r in rows:
-            if runs and runs[-1][1] == r:
-                runs[-1][1] = r + 1
-            else:
-                runs.append([r, r + 1])
-        self._runs = runs
-
-    def _take(self, full):
-        if len(self._runs) == 1:
-            a, b = self._runs[0]
-            return full[a:b]
-        return torch.cat([full[a:b] for a, b in self._runs])
-
-    def w(self):
-        return self._take(self._tabs.w)
-
-    def wi(self):
-        return self._take(self._tabs.wi)
+        self.ntt = tabs.ntt.rows(rows)
 
 
 class DeviceTables:
-    """The params' host tables as int64 tensors on one device."""
+    """The params' host tables as int64 tensors on one device, and the NTT
+    tables of every prime (`ntt.DeviceNTT`: on a card also the kernels'
+    32-bit tables), uploaded once."""
 
     def __init__(self, params: CKKSParams, device):
         self.device = torch.device(device)
@@ -65,9 +47,7 @@ class DeviceTables:
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
                                    device=self.device)
 
-        self.w = dev(t.w)
-        self.wi = dev(t.wi)
-        self.ninv = dev(t.ninv)
+        self.ntt = ntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, self.device)
         self.q = dev(params.q_arr)
         self.qinv = dev(params.qinv_arr)
         self.r2 = dev(params.r2_arr)
@@ -116,12 +96,13 @@ def _dev(a, tabs, rows=None):
 
 
 def ntt_rows(x, tr: _RowTables):
-    """int64 [..., L, N] natural -> bit-reversed eval order."""
-    return ntt.ntt_fwd(x, tr.w(), tr.q)
+    """int64 [..., L, N] natural -> bit-reversed eval order (the kernel on
+    the card, its plain version on the CPU)."""
+    return ntt.ntt_fwd(x, tr.ntt)
 
 
 def intt_rows(x, tr: _RowTables):
-    return ntt.ntt_inv(x, tr.wi(), tr.q, tr.ninv)
+    return ntt.ntt_inv(x, tr.ntt)
 
 
 # ---------------------------------------------------------------------------

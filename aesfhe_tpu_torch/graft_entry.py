@@ -151,7 +151,7 @@ def _dryrun_rank(rank, world, device_type):
         x = np.stack([rng.integers(0, int(q), params.n)
                       for q in params.q_primes[:L]])
         want = ntt.ntt_fwd(torch.as_tensor(x, device=dev),
-                           ctx.engine.tabs.w[:L], ctx.engine.tabs.q[:L])
+                           ctx.engine.tabs.ntt.rows(range(L)))
         y = d.fwd(sharded_global(mesh1, x.reshape(L, A, A).astype(np.int32),
                                  2))
         got = fetch_global(y, mesh1, 1).reshape(L, params.n)

@@ -19,7 +19,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "build"
-SOURCES = {"ks_inner": _PKG / "csrc" / "ks_inner.cu"}
+SOURCES = {"ks_inner": _PKG / "csrc" / "ks_inner.cu",
+           "ntt": _PKG / "csrc" / "ntt.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,6 +1,7 @@
 """Trace the bit-sliced round's noise and scale stage by stage.
 
-    python -m aesfhe_tpu_torch.noise_trace [--profile prod_boot] 54 43 29 15
+    python -m aesfhe_tpu_torch.noise_trace [--profile prod_boot]
+                                           [--device cuda] 54 43 29 15
 
 For each start level: encrypt random blocks, drop them to that level, run
 rounds (AddRoundKey, SubBytes, ShiftRows, MixColumns, cleanse) while at
@@ -8,14 +9,13 @@ least one round's depth is left, and after every stage print the level,
 the tracked scale over Delta, and over all 8 planes the smallest |slot| and
 the largest | |slot| - 1 | (every slot should be +-1).  First prints how
 far the profile's rescale primes stray from Delta, by level band.
-Runs on the card when there is one, else on the CPU.
+Runs on the card; without one it raises unless given `--device cpu`.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
-import torch
 
 from .core import dev_encoding
 from .core import engine as engine_mod
@@ -30,17 +30,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="prod_boot")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("starts", type=int, nargs="+")
     args = ap.parse_args(argv)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     wrap = EngineWrapper(XORConfig(profile=args.profile, rotation_steps=(),
-                                   device=device),
+                                   device=engine_mod.resolve_device(
+                                       args.device)),
                          rng=np.random.default_rng(args.seed))
     aes = AESFHE128Bitsliced(wrap, KEY)
     eng, svc = wrap.engine, aes.svc
     p = eng.params
     dev = np.abs(np.asarray(p.q_primes[1:], dtype=np.float64) / p.scale - 1)
     for lo, hi in ((1, 15), (16, 29), (30, 42), (43, p.top_level)):
+        hi = min(hi, p.top_level)
+        if lo > hi:                      # a shorter chain than prod_boot's
+            break
         print(f"levels {lo}-{hi}: max |q/Delta - 1| = "
               f"{dev[lo - 1:hi].max():.4f}")
 

@@ -26,8 +26,9 @@ out, with root psiA, and a twiddle sits between them.  So:
   is residue for residue the port's `ntt.ntt_fwd`/`ntt_inv` output.
 
 The reference's int8 MXU digit products are a TPU matmul technique and are
-not ported: the local stages are the port's NTT arithmetic.  Data are int32
-Montgomery residues as everywhere in the port; twiddles are plain
+not ported: the local stages are the port's NTT (`ntt.ntt_fwd`/`ntt_inv`,
+the CUDA kernels on the card) over size-A tables (`local_tables`).  Data
+are int32 Montgomery residues as everywhere in the port; twiddles are plain
 constants, so products keep the Montgomery form.
 """
 from __future__ import annotations
@@ -49,6 +50,22 @@ def _pow_table(base: int, q: int, n: int) -> np.ndarray:
         step = np.uint64(pow(base, int(out.size), q))
         out = np.concatenate([out, (out * step) % qq])
     return out[:n]
+
+
+def local_tables(params, A: int, nrows: int):
+    """Host tables (w, wi, ninv) of the size-A negacyclic NTT with root
+    psi^(N/A) for the first `nrows` q-primes: the 4-step's local stages."""
+    rev = ntt.bit_reverse_perm(A)
+    w = np.zeros((nrows, A), dtype=np.uint32)
+    wi = np.zeros((nrows, A), dtype=np.uint32)
+    ninv = np.zeros(nrows, dtype=np.uint32)
+    for li in range(nrows):
+        q = int(params.q_primes[li])
+        psi_a = pow(int(params.tables.psi[li]), params.n // A, q)
+        w[li, rev] = _pow_table(psi_a, q, A)
+        wi[li, rev] = _pow_table(pow(psi_a, -1, q), q, A)
+        ninv[li] = pow(A, -1, q)
+    return w, wi, ninv
 
 
 class DistNTT:
@@ -77,22 +94,16 @@ class DistNTT:
         self.comm = Comm(mesh.get_group(axis), self.device)
         nrows = params.num_q if level is None else level + 1
         C = A // self.D
-        rev = ntt.bit_reverse_perm(A)
         cols = np.arange(self.rank * C, (self.rank + 1) * C)
         rows = cols                          # the row block has the same span
-        w = np.zeros((nrows, A), dtype=np.int64)
-        wi = np.zeros((nrows, A), dtype=np.int64)
-        ninv = np.zeros(nrows, dtype=np.int64)
+        w, wi, ninv = local_tables(params, A, nrows)
+        rev = ntt.bit_reverse_perm(A)
         tw = np.zeros((nrows, A, C), dtype=np.int64)
         twi = np.zeros((nrows, C, A), dtype=np.int64)
         for li in range(nrows):
             q = int(params.q_primes[li])
-            psi = int(params.tables.psi[li])
-            ppow = _pow_table(psi, q, 2 * n).astype(np.int64)
-            psi_a = pow(psi, A, q)
-            w[li, rev] = _pow_table(psi_a, q, A).astype(np.int64)
-            wi[li, rev] = _pow_table(pow(psi_a, -1, q), q, A).astype(np.int64)
-            ninv[li] = pow(A, -1, q)
+            ppow = _pow_table(int(params.tables.psi[li]), q,
+                              2 * n).astype(np.int64)
             # T[i_a, n1] = psi^(n1 * (2*br(i_a) + 1 - A)), exponents mod 2N
             odd = 2 * rev.astype(np.int64) + 1 - A                   # [A]
             e = (odd[:, None] * cols[None, :]) % (2 * n)             # [A, C]
@@ -100,19 +111,18 @@ class DistNTT:
             e_inv = (-(odd[rows][:, None] * np.arange(A)[None, :])) % (2 * n)
             twi[li] = ppow[e_inv]
         dev = self.device
-        self.q = torch.as_tensor(np.asarray(params.q_primes[:nrows],
-                                            dtype=np.int64), device=dev)
-        self.w = torch.as_tensor(w, device=dev)
-        self.wi = torch.as_tensor(wi, device=dev)
-        self.ninv = torch.as_tensor(ninv, device=dev)
+        # the size-A transforms: the NTT kernels on the card
+        self.local = ntt.DeviceNTT(w, wi, ninv, params.q_primes[:nrows],
+                                   dev).rows(range(nrows))
+        self.q = self.local.q
         self.tw = torch.as_tensor(tw, device=dev)
         self.twi = torch.as_tensor(twi, device=dev)
 
     def _ntt_last(self, x, inverse: bool):
         """Size-A (inverse) NTT along the last axis of [L, R, A]."""
-        y = x.permute(1, 0, 2).contiguous()                # [R, L, A]
-        y = (ntt.ntt_inv(y, self.wi, self.q, self.ninv) if inverse
-             else ntt.ntt_fwd(y, self.w, self.q))
+        y = x.permute(1, 0, 2)                             # [R, L, A]
+        y = (ntt.ntt_inv(y, self.local) if inverse
+             else ntt.ntt_fwd(y, self.local))
         return y.permute(1, 0, 2)
 
     def fwd(self, x: torch.Tensor) -> torch.Tensor:

@@ -28,14 +28,16 @@ ARK(rk0) and round 1 once untraced and once under torch.profiler.
 
 Prints one JSON object: the traced wall time, the summed device kernel
 time and its share of the wall (the rest is the card idling on the host),
-the key-switch kernel's share, and the kernels that take the most device
-time (with `--graph` one such record each for "eager" and "graph").
+the key-switch kernel's and the NTT kernels' seconds, launches and shares,
+and the kernels that take the most device time (with `--graph` one such
+record each for "eager" and "graph").
 Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -44,7 +46,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import run_full_aes, zeta_trace
-from .core import ks_inner
+from .core import ks_inner, ntt
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
 from .pipeline import AESFHE128, AESFHE128Bitsliced
@@ -123,7 +125,7 @@ def _trace(work) -> dict:
     ev1.record()
     torch.cuda.synchronize()
     untraced = ev0.elapsed_time(ev1) / 1e3
-    ks_inner.launches = 0
+    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -131,6 +133,7 @@ def _trace(work) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = ks_inner.launches
+    ntt_launches = dict(fwd=ntt.launches_fwd, inv=ntt.launches_inv)
 
     kernels = {}
     for evt in prof.key_averages():
@@ -140,6 +143,11 @@ def _trace(work) -> dict:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
     device_s = sum(kernels.values()) / 1e6
     ks_s = sum(v for k, v in kernels.items() if "ks_inner" in k) / 1e6
+    # csrc/ntt.cu's passes, ntt_pass<forward?, strided?, in, out>, by the
+    # demangled or the mangled name
+    ntt_s = {d: sum(v for k, v in kernels.items()
+                    if re.search(f"ntt_pass(<{flag}|ILb{bit})", k)) / 1e6
+             for d, flag, bit in (("fwd", "true", 1), ("inv", "false", 0))}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return dict(untraced_wall_s=untraced, traced_wall_s=wall,
                 device_kernel_s=device_s,
@@ -147,6 +155,9 @@ def _trace(work) -> dict:
                 device_busy_share_untraced=device_s / untraced,
                 ks_inner_s=ks_s, ks_inner_launches=launches,
                 ks_inner_share_of_device=ks_s / device_s if device_s else None,
+                ntt_s=ntt_s, ntt_launches=ntt_launches,
+                ntt_share_of_device=(sum(ntt_s.values()) / device_s
+                                     if device_s else None),
                 top_kernels_s=[(k[:90], v / 1e6) for k, v in top])
 
 

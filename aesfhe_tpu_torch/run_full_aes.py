@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .aes_tables import aes128_partial
-from .core import ks_inner
+from .core import ks_inner, ntt
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
 from .pipeline import AESFHE128Bitsliced
@@ -100,9 +100,9 @@ def run_round(aes: AESFHE128Bitsliced, st: BitState, r: int,
 def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
                  rounds: int) -> dict:
     """Encrypt `state`, run `rounds` rounds (run_round), decrypt and check
-    every block against the AES oracle.  The engine counters and
-    ks_inner.launches are zeroed just before the rounds and read just
-    after them."""
+    every block against the AES oracle.  The engine counters and the
+    kernels' launch counts (ks_inner, ntt fwd/inv) are zeroed just before
+    the rounds and read just after them."""
     wrap = aes.eng
     eng = wrap.engine
     dev = eng.device
@@ -127,7 +127,7 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
     aes.refresh = timed_refresh
     bk = wrap.boot_key
     eng.reset_counters()
-    ks_inner.launches = 0
+    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
     round_s, levels = [], []
     t_all = time.perf_counter()
     try:
@@ -141,6 +141,7 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
         aes.refresh = refresh
     wall = time.perf_counter() - t_all
     launches = ks_inner.launches
+    ntt_launches = dict(fwd=ntt.launches_fwd, inv=ntt.launches_inv)
     counters = dict(eng.counters)
 
     got = aes.decrypt_state(st)
@@ -163,7 +164,7 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
         steady_bootstrap_s=(float(np.median(boot_s[1:]))
                             if len(boot_s) > 1 else None),
         keyswitches=counters["keyswitch"], ks_inner_launches=launches,
-        counters=counters,
+        ntt_launches=ntt_launches, counters=counters,
         diag_stacks=len(bk.diags), diag_hits=bk.diag_hits,
         diag_misses=bk.diag_misses,
         diag_gib=sum(t.numel() for t in bk.diags.values()) * 4 / 2 ** 30,

@@ -10,7 +10,11 @@ Phases, each announced on its own line; any failure exits non-zero
      all started together);
   3. kernel phase: each kernel against its plain torch version on random
      residues at the shapes the main path gives it, exact equality
-     required; kernel time (CUDA events), plain time and the memory bound;
+     required; kernel time (CUDA events), plain time and the bound; the
+     NTT kernels (ntt_fwd, ntt_inv) at a key-switch decomposition's J
+     digits over q|specials (the top level; level 29's gapped rows), a
+     rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
+     view, DistNTT's [128, 55, 256], and two round trips;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -73,9 +77,13 @@ Phases, each announced on its own line; any failure exits non-zero
      launches equal to key-switches; the kernel phase also times ks_inner
      at that profile's widest switch.  The flagship phase prints the bench
      flagship line mapped from its own result.
+Every main path (slice, bench legs, flagship with its graph replays, each
+fused replay, zeta legs, every mesh rank) zeroes the launch counts just
+before it and prints its NTT kernel launches, which must be > 0 for both.
 The line before the last is a JSON object with one entry per kernel
-(launches summed over the slice, the bench legs, the flagship, the zeta
-legs and every rank of the mesh phase); the last line is
+(ks_inner, ntt_fwd, ntt_inv; launches summed over the slice, the bench
+legs, the flagship, the zeta legs and every rank of the mesh phase); the
+last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -95,7 +103,7 @@ import torch
 from aesfhe_tpu_torch import (bench, bootstrap, kernels, run_full_aes,
                               zeta_trace)
 from aesfhe_tpu_torch.aes_tables import aes128_partial
-from aesfhe_tpu_torch.core import ks_inner, ops_impl, rns
+from aesfhe_tpu_torch.core import ks_inner, ntt, ops_impl, rns
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
 from aesfhe_tpu_torch.core.params import get_params
 from aesfhe_tpu_torch.ops.bitplane import BitState
@@ -103,6 +111,7 @@ from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
 from aesfhe_tpu_torch.ops.zeta import phase_error, split_nibbles
 from aesfhe_tpu_torch.parallel import comm_ledger, launch
 from aesfhe_tpu_torch.parallel.comm_ledger import allreduce_wire_bytes
+from aesfhe_tpu_torch.parallel.dist_ntt import local_tables
 from aesfhe_tpu_torch.parallel.mesh import (digit_pad, make_mesh,
                                             mesh_device, replicated)
 from aesfhe_tpu_torch.pipeline import AESFHE128, AESFHE128Bitsliced
@@ -124,6 +133,11 @@ FLAGSHIP_ROUNDS = 10
 SEED = 0
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")   # FIPS-197 C.1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
+# 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per SM per clock
+# on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), 132 SMs at the 1.98 GHz boost clock behind the
+# published 67 TFLOP/s float32 rate (128 lanes per SM)
+INT32_MULS_PER_S = 132 * 64 * 1.98e9
 MESH_SEED = SEED + 4
 # bench's bitplane and zeta legs: the root bench.py's default profile
 BENCH_LOGN, BENCH_LEVELS, BENCH_ITERS = 16, 16, 3
@@ -157,6 +171,120 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def zero_launches():
+    """Every kernel's launch count to 0, just before a main path runs."""
+    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
+
+
+def read_launches() -> dict:
+    return dict(ks_inner=ks_inner.launches, ntt_fwd=ntt.launches_fwd,
+                ntt_inv=ntt.launches_inv)
+
+
+def check_ntt_launches(where: str, counts: dict):
+    """Print a main path's NTT kernel launches; both must be > 0."""
+    print(f"{where}: NTT kernel launches: forward {counts['ntt_fwd']}, "
+          f"inverse {counts['ntt_inv']}", flush=True)
+    if counts["ntt_fwd"] <= 0 or counts["ntt_inv"] <= 0:
+        raise AssertionError(f"{where}: the NTT kernels were not both "
+                             f"launched: {counts}")
+
+
+def add_launches(total: dict, counts: dict):
+    for k in total:
+        total[k] += counts[k]
+
+
+def ntt_case(label: str, rows: ntt.NTTRows, x: torch.Tensor) -> list:
+    """Both NTT kernels against their plain versions on x int64 [..., L, N]
+    on the card (torch.equal), each timed with CUDA events beside its plain
+    version and its bound: the larger of the int64 bytes in and out over
+    the memory rate and of the 32-bit multiplies over their rate."""
+    *lead, L, N = x.shape
+    B = int(np.prod(lead)) if lead else 1
+    out = []
+    for name, fn, plain in (
+            ("ntt_fwd", ntt.ntt_fwd,
+             lambda: ntt.ntt_fwd_plain(x, rows.w(), rows.q)),
+            ("ntt_inv", ntt.ntt_inv,
+             lambda: ntt.ntt_inv_plain(x, rows.wi(), rows.q, rows.ninv))):
+        got = fn(x, rows)
+        want = plain()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: max |err| {err}")
+        ms = cuda_ms(lambda: fn(x, rows))
+        plain_ms = cuda_ms(plain, reps=3)
+        by_bytes = ntt.bytes_moved(B, L, N) / HBM_BYTES_PER_S * 1e3
+        by_ops = ntt.int_mults(B, L, N, name == "ntt_inv") \
+            / INT32_MULS_PER_S * 1e3
+        bound_ms = max(by_bytes, by_ops)
+        bound_by = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"{name} {label} [{B}, {L}, {N}]: equal, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({bound_ms / ms:.0%} of bound)", flush=True)
+        out.append(dict(name=name, shape=label, B=B, L=L, N=N,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by))
+    return out
+
+
+def ntt_cases(params, rng, dev) -> list:
+    """The NTT kernels at the main path's shapes (prod_boot, N=2^16): a
+    key-switch decomposition (J digits over q_0..q_level | specials) at the
+    top level and, over a non-contiguous row set, at the slice's first
+    level; a rescale's and a ModRaise's two components over 55 rows; one
+    row (a rescale's dropped limb), with int64 inputs outside [0, q) that
+    the kernels reduce on load; the pair rescale's two dropped limbs as a
+    strided view; the DistNTT's size-256 transforms [R, L, 256] of a D = 2
+    mesh; and the round trip ntt_inv(ntt_fwd(x)) = x."""
+    tabs = ops_impl.DeviceTables(params, dev)
+    qa = np.asarray(params.all_primes, dtype=np.int64)
+    N = params.n
+
+    def residues(shape, rows):
+        x = rng.integers(0, 1 << 62, shape) % qa[rows].reshape(-1, 1)
+        return torch.as_tensor(x, device=dev)
+
+    cases = []
+    for level in (params.top_level, AESFHE128Bitsliced.ROUND_DEPTH * ROUNDS
+                  + 1):
+        rows = ops_impl._rows(params, level, True)
+        J = len(params.ks_tables(level)["groups"])
+        gaps = "contiguous" if np.all(np.diff(rows) == 1) else "gapped"
+        cases += ntt_case(f"decompose level {level} J={J} ({gaps} rows)",
+                          tabs.ntt.rows(rows), residues((J, len(rows), N),
+                                                        rows))
+    full = np.arange(params.num_q)
+    x55 = residues((2, params.num_q, N), full)
+    cases += ntt_case("rescale/ModRaise 2 x 55 rows", tabs.ntt.rows(full),
+                      x55)
+    last = [params.top_level]
+    spread = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (2, 1, N)),
+                             device=dev)
+    cases += ntt_case("one row, inputs outside [0, q)", tabs.ntt.rows(last),
+                      spread)
+    pair = [params.top_level - 1, params.top_level]
+    cases += ntt_case("pair rescale's limbs (strided view)",
+                      tabs.ntt.rows(pair), x55[:, -2:])
+    A = 1 << ((N.bit_length() - 1) // 2)
+    small = ntt.DeviceNTT(*local_tables(params, A, params.num_q),
+                          params.q_primes, dev).rows(full)
+    cases += ntt_case(f"DistNTT size {A} (D=2)", small,
+                      residues((A // 2, params.num_q, A), full))
+    for rows, x in ((tabs.ntt.rows(full), x55), (small, residues(
+            (A // 2, params.num_q, A), full))):
+        back = ntt.ntt_inv(ntt.ntt_fwd(x, rows), rows)
+        if not torch.equal(back, x):
+            raise AssertionError(f"ntt_inv(ntt_fwd(x)) != x at "
+                                 f"{tuple(x.shape)}")
+    print("round trips ntt_inv(ntt_fwd(x)) = x at [2, 55, 65536] and "
+          "[128, 55, 256]", flush=True)
+    return cases
 
 
 def ks_inner_case(params, level: int, key_cap, rng, dev):
@@ -291,20 +419,21 @@ def mesh_rank(rank: int, world: int, profile: str, device_type: str,
     sync()
     meng.reset_counters()
     meng.dks.levels.clear()
-    ks_inner.launches = 0
+    zero_launches()
     with comm_ledger.recording() as led:
         t0 = time.perf_counter()
         out = run_full_aes.run_round(maes, st, 1, 1)
         sync()
         round_s = time.perf_counter() - t0
         zs, boot_s = _refresh_pairs(mwrap, out, sync, boots)
-    launches = ks_inner.launches
+    counts = read_launches()
+    launches = counts["ks_inner"]
     counters = dict(meng.counters)
     levels = dict(meng.dks.levels)
     K, N = params.num_special, params.n
     predicted = sum(c * 2 * (lvl + 1 + K) * N * 8 for lvl, c in levels.items())
     res = dict(rank=rank, keygen_s=keygen_s, round_s=round_s,
-               boot_s=boot_s, launches=launches,
+               boot_s=boot_s, launches=launches, counts=counts,
                keyswitches=counters["keyswitch"],
                bootstraps=counters["bootstrap"], levels=levels,
                allreduces=led.counts.get("psum", 0),
@@ -318,8 +447,9 @@ def mesh_rank(rank: int, world: int, profile: str, device_type: str,
     # (on a CPU rehearsal the plain version runs: no launches)
     if not (counters["keyswitch"] == sum(levels.values())
             == res["allreduces"] > 0) or set(led.counts) != {"psum"} or \
-            (cuda and launches != counters["keyswitch"]):
-        raise AssertionError(f"rank {rank}: {launches} launches, "
+            (cuda and (launches != counters["keyswitch"]
+                       or counts["ntt_fwd"] <= 0 or counts["ntt_inv"] <= 0)):
+        raise AssertionError(f"rank {rank}: launches {counts}, "
                              f"{counters['keyswitch']} key-switches, "
                              f"collectives {led.counts}, levels {levels}")
     if res["allreduce_bytes"] != predicted:
@@ -386,7 +516,8 @@ def _share(r: dict) -> str:
 
 def mesh_phase(boots: int) -> dict:
     """The mesh phase in spawned ranks with `boots` refresh bootstraps;
-    returns rank 0's record and the launches summed over the ranks."""
+    returns rank 0's record and each kernel's launches summed over the
+    ranks."""
     cards = torch.cuda.device_count()
     world, backend = (cards, "nccl") if cards >= 2 else (2, "gloo")
     torch.cuda.empty_cache()
@@ -410,6 +541,7 @@ def mesh_phase(boots: int) -> dict:
               f"all-reduces take "
               f"{_share(r)}; peak device memory {r['peak_gib']:.2f} GiB",
               flush=True)
+        check_ntt_launches(f"mesh rank {r['rank']}", r["counts"])
     lv = sorted(r0["levels"].items(), reverse=True)
     print(f"key-switches per level: {lv}", flush=True)
     sb = r0["single_boot_s"]
@@ -424,8 +556,10 @@ def mesh_phase(boots: int) -> dict:
           f"{r0['blocks']} blocks equal aes128_partial(block, key, 1); the "
           f"bootstraps (exit level {r0['exit_level']}, max | |slot| - 1 | "
           f"{r0['slot_err']:.3e}) decode to the round's bits 0-3", flush=True)
-    return dict(rank0=r0, launches=sum(r["launches"] for r in res),
-                world=world, backend=backend)
+    total = dict(ks_inner=0, ntt_fwd=0, ntt_inv=0)
+    for r in res:
+        add_launches(total, r["counts"])
+    return dict(rank0=r0, launches=total, world=world, backend=backend)
 
 
 def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
@@ -446,7 +580,9 @@ def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
           f" GiB; per replay {per}", flush=True)
     if per.get("ks_inner_launches", 0) <= 0 or \
             per["ks_inner_launches"] != per.get("keyswitch") or \
-            per.get("bootstrap") != 1:
+            per.get("bootstrap") != 1 or \
+            per.get("ntt_fwd_launches", 0) <= 0 or \
+            per.get("ntt_inv_launches", 0) <= 0:
         raise AssertionError(f"a replay would count {per}")
 
     def timed(fn):
@@ -463,12 +599,13 @@ def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
     for i, ct in enumerate(inputs):
         want, se = timed(lambda: eng.bootstrap(ct, wrap.relin_key,
                                                wrap.conj_key, wrap.boot_key))
-        l0 = ks_inner.launches
+        l0 = read_launches()
         k0 = eng.counters["keyswitch"]
         got, sr = timed(lambda: fb(ct))
         eager_s.append(se)
         replay_s.append(sr)
-        if ks_inner.launches - l0 != per["ks_inner_launches"] or \
+        l1 = read_launches()
+        if any(l1[k] - l0[k] != per[f"{k}_launches"] for k in l0) or \
                 eng.counters["keyswitch"] - k0 != per["keyswitch"]:
             raise AssertionError("a replay did not count its launches")
         if not torch.equal(got.data, want.data) or got.scale != want.scale:
@@ -485,6 +622,9 @@ def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
           f"for bit (and two back-to-back replays stay independent); warm "
           f"eager {[round(x, 4) for x in eager_s]} s, replay "
           f"{[round(x, 4) for x in replay_s]} s (CUDA events)", flush=True)
+    check_ntt_launches("fused bootstrap, per replay",
+                       dict(ntt_fwd=per["ntt_fwd_launches"],
+                            ntt_inv=per["ntt_inv_launches"]))
     return dict(capture_s=fb.capture_s, pool_gib=fb.pool_bytes / 2 ** 30,
                 eager_s=float(np.median(eager_s)),
                 replay_s=float(np.median(replay_s)),
@@ -504,7 +644,7 @@ def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng.reset_counters()
-    ks_inner.launches = 0
+    zero_launches()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -513,7 +653,8 @@ def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
     ev1.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ks_inner.launches
+    counts = read_launches()
+    launches = counts["ks_inner"]
     counters = dict(eng.counters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     got = aes.decrypt_state(out)
@@ -540,7 +681,8 @@ def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
         raise AssertionError(f"zeta {name}: ks_inner launched {launches} "
                              f"times for {counters['keyswitch']} "
                              f"key-switches")
-    return dict(seconds=s, launches=launches, err=err, got=got,
+    check_ntt_launches(f"zeta {name}", counts)
+    return dict(seconds=s, launches=counts, err=err, got=got,
                 bootstraps=counters["bootstrap"])
 
 
@@ -629,9 +771,9 @@ def zeta_phase() -> list[dict]:
 def bench_phase() -> int:
     """bench's bitplane and zeta legs in process (no CPU leg): each leg's
     line printed, its output held against the AES oracle, launches equal to
-    key-switches over the warm-up and the timed iterations.  Returns the
-    launches."""
-    total = 0
+    key-switches over the warm-up and the timed iterations, both NTT
+    kernels launched.  Returns each kernel's launches."""
+    total = dict(ks_inner=0, ntt_fwd=0, ntt_inv=0)
     for mode in ("bitplane", "zeta"):
         t0 = time.perf_counter()
         leg = bench.SETUPS[mode](BENCH_LOGN, BENCH_LEVELS, "cuda")
@@ -639,10 +781,11 @@ def bench_phase() -> int:
         setup_s = time.perf_counter() - t0
         eng = leg.wrap.engine
         eng.reset_counters()
-        ks_inner.launches = 0
+        zero_launches()
         bps, stats, out, leg = bench.run_leg(mode, BENCH_LOGN, BENCH_LEVELS,
                                              BENCH_ITERS, "cuda", leg=leg)
-        launches = ks_inner.launches
+        counts = read_launches()
+        launches = counts["ks_inner"]
         counters = dict(eng.counters)
         bad = bench.check_leg(leg, out)
         err = ""
@@ -664,26 +807,41 @@ def bench_phase() -> int:
             raise AssertionError(f"bench {mode}: ks_inner launched "
                                  f"{launches} times for "
                                  f"{counters['keyswitch']} key-switches")
-        total += launches
+        check_ntt_launches(f"bench {mode}", counts)
+        add_launches(total, counts)
         del leg, out, eng
         torch.cuda.empty_cache()
     return total
 
 
-def finish(card: str, cases: list, top: dict, launches: int) -> int:
-    """The closing lines: the kernels line (`launches` summed over the
-    main paths run; ms, plain_ms and bound_ms of the widest shape, and
-    every shape timed under "shapes"), the card, the contract's last
+def finish(card: str, cases: list, top: dict, ntt_shapes: list,
+           launches: dict) -> int:
+    """The closing lines: the kernels line (each kernel's `launches` summed
+    over the main paths run; ms, plain_ms and bound_ms of its widest shape,
+    and every shape timed under "shapes"), the card, the contract's last
     line."""
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [dict(
+    kernels = [dict(
         name="ks_inner", route="cuda",
         source="aesfhe_tpu_torch/csrc/ks_inner.cu",
-        replaces="aesfhe_tpu/core/pallas_ks.py:38", launches=launches,
+        replaces="aesfhe_tpu/core/pallas_ks.py:38",
+        launches=launches["ks_inner"],
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=top["ms"],
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by="bytes", library_ms=None, shapes=cases)]}))
+        bound_by="bytes", library_ms=None, shapes=cases)]
+    for name, line in (("ntt_fwd", 239), ("ntt_inv", 261)):
+        mine = [c for c in ntt_shapes if c["name"] == name]
+        widest = mine[0]            # the top level's decomposition
+        kernels.append(dict(
+            name=name, route="cuda", source="aesfhe_tpu_torch/csrc/ntt.cu",
+            replaces=f"aesfhe_tpu/core/mxu_ntt.py:{line}",
+            launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=widest["ms"], plain_ms=widest["plain_ms"],
+            bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
+            library_ms=None, shapes=mine))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -737,9 +895,12 @@ def main(argv=None) -> int:
     # BENCH_LEVELS (the first product rescales before it relinearizes)
     cases.append(ks_inner_case(bench.bench_params(BENCH_LOGN, BENCH_LEVELS),
                                BENCH_LEVELS - 1, None, rng, dev))
+    ntt_shapes = ntt_cases(params, rng, dev)
+    torch.cuda.empty_cache()
     if mesh_only:
         phase("mesh")
-        return finish(card, cases, top, mesh_phase(2)["launches"])
+        return finish(card, cases, top, ntt_shapes,
+                      mesh_phase(2)["launches"])
 
     phase("slice")
     t0 = time.perf_counter()
@@ -759,7 +920,7 @@ def main(argv=None) -> int:
                                                      dtype=np.uint8)
     torch.cuda.reset_peak_memory_stats()
     eng.reset_counters()
-    ks_inner.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     st = aes.encrypt_state(state)
     st = BitState([eng._drop(b, work_level) for b in st.bits])
@@ -770,7 +931,8 @@ def main(argv=None) -> int:
     t2 = time.perf_counter()
     got = aes.decrypt_state(st)
     t3 = time.perf_counter()
-    launches = ks_inner.launches
+    counts = read_launches()
+    launches = counts["ks_inner"]
     counters = dict(eng.counters)
 
     want = np.concatenate([aes128_partial(state[b:b + 16], KEY, ROUNDS)
@@ -798,13 +960,13 @@ def main(argv=None) -> int:
     if launches <= 0 or launches != counters["keyswitch"]:
         raise AssertionError(f"ks_inner launched {launches} times for "
                              f"{counters['keyswitch']} key-switches")
-
-    slice_launches = launches
+    check_ntt_launches("slice", counts)
+    total = dict(counts)
     del wrap, aes, eng, st
     torch.cuda.empty_cache()
 
     phase("bench")
-    bench_launches = bench_phase()
+    add_launches(total, bench_phase())
 
     phase("flagship")
     torch.cuda.reset_peak_memory_stats()
@@ -835,6 +997,9 @@ def main(argv=None) -> int:
     finally:
         aes.refresh = refresh
     flag_launches = res["ks_inner_launches"]
+    flag_counts = dict(ks_inner=flag_launches,
+                       ntt_fwd=res["ntt_launches"]["fwd"],
+                       ntt_inv=res["ntt_launches"]["inv"])
     boot_s = res["bootstrap_s"]
     print(f"{res['blocks']} blocks, {FLAGSHIP_ROUNDS} rounds from level "
           f"{res['work_level']}: encrypt_state {res['encrypt_s']:.2f} s, "
@@ -875,6 +1040,11 @@ def main(argv=None) -> int:
     if flag_launches <= 0 or flag_launches != res["keyswitches"]:
         raise AssertionError(f"ks_inner launched {flag_launches} times for "
                              f"{res['keyswitches']} key-switches")
+    check_ntt_launches("flagship (the graph replays included)", flag_counts)
+    if any(g["per_replay"].get(k, 0) <= 0 for g in res["graphs"]
+           for k in ("ntt_fwd_launches", "ntt_inv_launches")):
+        raise AssertionError("a bootstrap graph replays no NTT kernel")
+    add_launches(total, flag_counts)
     # bench's flagship line, mapped from this phase's own run
     print(json.dumps(bench.flagship_record(dict(res, profile=PROFILE))),
           flush=True)
@@ -901,14 +1071,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("zeta")
-    zeta_launches = sum(leg["launches"] for leg in zeta_phase())
+    for leg in zeta_phase():
+        add_launches(total, leg["launches"])
 
     # one refresh bootstrap on the mesh here (two with --mesh-only): the
     # ten zeta rounds need the time
     phase("mesh")
-    mesh = mesh_phase(1)
-    return finish(card, cases, top, slice_launches + bench_launches
-                  + flag_launches + zeta_launches + mesh["launches"])
+    add_launches(total, mesh_phase(1)["launches"])
+    return finish(card, cases, top, ntt_shapes, total)
 
 
 if __name__ == "__main__":

@@ -139,18 +139,19 @@ def test_ntt_fwd_inv(profile):
     x = np.stack([rng.integers(0, q, p.n, dtype=np.uint32)
                   for q in p.all_primes])
     x2 = np.stack([x, x[:, ::-1].copy()])           # a leading batch axis
-    q = torch.as_tensor(p.all_primes, dtype=torch.int64)
+    rows = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows(
+        range(p.L_tot))
 
     def c64(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64))
 
-    fwd = tntt.ntt_fwd(c64(x2), c64(t.w), q)
+    fwd = tntt.ntt_fwd(c64(x2), rows)
     jt = jp.tables
     want = jntt.ntt_fwd(jnp.asarray(x2), jnp.asarray(jt.w),
                         jnp.asarray(jt.w_sh), jnp.asarray(jt.q))
     assert torch.equal(trns.narrow(fwd),
                        interop.to_tensor(np.asarray(want), device="cpu"))
-    inv = tntt.ntt_inv(fwd, c64(t.wi), q, c64(t.ninv))
+    inv = tntt.ntt_inv(fwd, rows)
     want_inv = jntt.ntt_inv(want, jnp.asarray(jt.wi), jnp.asarray(jt.wi_sh),
                             jnp.asarray(jt.q), jnp.asarray(jt.ninv),
                             jnp.asarray(jt.ninv_sh))
@@ -286,3 +287,17 @@ def test_mod_down_vhat_at_half_integers(name, level):
     want = ref(jnp.asarray(interop.to_numpy(x.int())), level)
     assert torch.equal(got.int(), interop.to_tensor(np.asarray(want),
                                                     device="cpu"))
+
+
+def test_noise_trace_needs_a_card_unless_told_cpu(capsys):
+    """`python -m aesfhe_tpu_torch.noise_trace` runs on the card by
+    default: without one it raises; with --device cpu it traces (tiny, a
+    start at level 0: the fresh state only)."""
+    from aesfhe_tpu_torch import noise_trace
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        noise_trace.main(["--profile", "tiny", "0"])
+    noise_trace.main(["--profile", "tiny", "--device", "cpu", "0"])
+    out = capsys.readouterr().out
+    assert "levels 1-8" in out and "fresh    level  0" in out

@@ -115,9 +115,9 @@ def ntt_case(rank, world, profile, seed):
     L = p.num_q
     rng = np.random.default_rng(seed)
     x = np.stack([rng.integers(0, int(q), p.n) for q in p.q_primes[:L]])
-    q = torch.as_tensor(np.asarray(p.q_primes[:L], dtype=np.int64))
-    want = ntt.ntt_fwd(torch.as_tensor(x), torch.as_tensor(
-        p.tables.w[:L].astype(np.int64)), q)
+    t = p.tables
+    rows = ntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows(range(L))
+    want = ntt.ntt_fwd(torch.as_tensor(x), rows)
     xs = sharded_global(mesh, d.pack(x.astype(np.int32)), 2)
     with comm_ledger.recording() as st_f:
         y = d.fwd(xs)
@@ -131,10 +131,7 @@ def ntt_case(rank, world, profile, seed):
     assert comm_ledger.alltoall_wire_bytes(L * p.n * 4, world) == \
         st_f.bytes_in["all_to_all"] * (world - 1) / world
     yfull = torch.as_tensor(got).reshape(L, d.A, d.A)
-    inv_want = ntt.ntt_inv(torch.as_tensor(got, dtype=torch.int64),
-                           torch.as_tensor(p.tables.wi[:L].astype(np.int64)),
-                           q, torch.as_tensor(
-                               p.tables.ninv[:L].astype(np.int64)))
+    inv_want = ntt.ntt_inv(torch.as_tensor(got, dtype=torch.int64), rows)
     zi = d.inv(sharded_global(mesh, yfull.numpy().astype(np.int32), 1))
     assert np.array_equal(fetch_global(zi, mesh, 2).reshape(L, p.n),
                           inv_want.numpy()), "DistNTT inv"
