@@ -62,8 +62,7 @@ def _encode_eval_dev(params, tabs, z: torch.Tensor, level: int, scale: float):
     tr = ops_impl._q_tr(params, tabs, level)
     q = tr.q.reshape(-1, 1)
     res = torch.remainder(c[None, :], q)
-    xm = rns.to_mont(res, q, tr.r2.reshape(-1, 1), tr.rinv.reshape(-1, 1))
-    return ops_impl.ntt_rows(xm, tr).int()
+    return ops_impl.ntt_rows(res, tr, to_mont=True, out_dtype=torch.int32)
 
 
 def encode_eval_dev(params, tabs, vec, level: int, scale: float):

@@ -61,16 +61,13 @@ def _decrypt_core(params, tabs, data, s_eval):
         acc = rns.add_mod(acc, rns.mont_mul(data[i].long(), spow, q, ri), q)
         if i + 1 < data.shape[0]:
             spow = rns.mont_mul(spow, s, q, ri)
-    return rns.from_mont(ops_impl.intt_rows(acc, tr), q, ri).int()
+    return ops_impl.intt_rows(acc, tr, from_mont=True, out_dtype=torch.int32)
 
 
 def _encode_core(params, tabs, residues, level: int):
     """Plain residues int64 [L, N] -> Montgomery eval int32."""
     tr = ops_impl._q_tr(params, tabs, level)
-    q = tr.q.reshape(-1, 1)
-    xm = rns.to_mont(residues, q, tr.r2.reshape(-1, 1),
-                     tr.rinv.reshape(-1, 1))
-    return ops_impl.ntt_rows(xm, tr).int()
+    return ops_impl.ntt_rows(residues, tr, to_mont=True, out_dtype=torch.int32)
 
 
 def _digits_batch_core(params, tabs, payloads, level: int):
@@ -91,9 +88,7 @@ def _digits_batch_core(params, tabs, payloads, level: int):
         term = rns.shoup_mul(pay[:, k, None, :], w[k].reshape(1, -1, 1), q)
         acc = term if acc is None else rns.add_mod(acc, term, q)
     res = torch.where(pay[:, 4, None, :] != 0, rns.neg_mod(acc, q), acc)
-    xm = rns.to_mont(res, q, tr.r2.reshape(1, -1, 1),
-                     tr.rinv.reshape(1, -1, 1))
-    return ops_impl.ntt_rows(xm, tr).int()
+    return ops_impl.ntt_rows(res, tr, to_mont=True, out_dtype=torch.int32)
 
 
 def _digits_encode_core(params, tabs, payload, level: int):

@@ -119,10 +119,8 @@ def _to_eval(params: CKKSParams, tabs, residues_u32: np.ndarray, rows):
     """Plain coefficient residues [L, N] (host) -> Montgomery eval int32 on
     the tables' device."""
     tr = tabs.rows(rows)
-    x = torch.as_tensor(residues_u32.astype(np.int64), device=tabs.device)
-    q = tr.q.reshape(-1, 1)
-    xm = rns.to_mont(x, q, tr.r2.reshape(-1, 1), tr.rinv.reshape(-1, 1))
-    return ops_impl.ntt_rows(xm, tr).int()
+    x = torch.as_tensor(residues_u32.astype(np.int32), device=tabs.device)
+    return ops_impl.ntt_rows(x, tr, to_mont=True, out_dtype=torch.int32)
 
 
 def gen_secret_key(params: CKKSParams, tabs, rng) -> SecretKey:

@@ -9,15 +9,23 @@ coefficient order in, bit-reversed evaluation order out; the inverse uses
 Gentleman-Sande butterflies on bit-reversed input.  Output slot i holds the
 evaluation at psi^(2*bitrev(i)+1), the order `params.galois_perm` indexes.
 
-Data are int64 tensors holding Montgomery residues; twiddles are plain
-constants, so a twiddle product (x*w mod q) keeps the Montgomery form.
+Twiddles are plain constants, so a twiddle product (x*w mod q) keeps the
+Montgomery form of the data.
 
 `ntt_fwd`/`ntt_inv` take the data and an `NTTRows` (a row selection of one
-`DeviceNTT`, the tables of a prime set on one device).  On a CPU tensor
-they compute the plain version (`ntt_fwd_plain`/`ntt_inv_plain`); on a
-CUDA tensor they launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu`
-(design note there) or raise.  `launches_fwd`/`launches_inv` count the
-kernel launches (one per call, whatever its passes).
+`DeviceNTT`, the tables of a prime set on one device).  The contract:
+- input int32 (canonical residues, read as they are) or int64 (any value,
+  reduced mod q: the transform of x mod q);
+- output int32 or int64 (`out_dtype`), canonical residues;
+- `ntt_fwd(x, t, to_mont=True)` is `ntt_fwd(rns.to_mont(x))` (x * 2^32 mod
+  q on load) and `ntt_inv(x, t, from_mont=True)` is
+  `rns.from_mont(ntt_inv(x))` (2^-32 folded into the last stage's N^-1
+  constants), residue for residue.
+On a CPU tensor they compute the plain version (`ntt_fwd_plain`/
+`ntt_inv_plain`, the same arguments step by step); on a CUDA tensor they
+launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu` (design note there),
+one launch a call, or raise.  `launches_fwd`/`launches_inv` count the
+launches.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ from . import rns
 launches_fwd = 0
 launches_inv = 0
 MAX_LOGN = 17            # the kernels' largest ring (csrc/ntt.cu kMaxLog)
-ONE_PASS_LOGN = 12       # up to here one pass, no scratch (kOnePassLog)
+DTYPES = (torch.int32, torch.int64)
+R32 = 1 << 32            # the Montgomery radix R
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -94,17 +103,22 @@ class NTTTables:
         self.q = np.asarray(primes, dtype=np.uint32)
 
 
-def ntt_fwd_plain(x: torch.Tensor, w: torch.Tensor,
-                  q: torch.Tensor) -> torch.Tensor:
+def ntt_fwd_plain(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
+                  r: torch.Tensor | None = None,
+                  out_dtype: torch.dtype = torch.int64) -> torch.Tensor:
     """Forward negacyclic NTT, the kernel's plain version.
 
-    x: int64 [..., L, N] (natural coefficient order); w: int64 [L, N];
-    q: int64 [L].  Returns int64 [..., L, N] in bit-reversed eval order.
-    Each stage writes u + w*v and u - w*v + q into one buffer and reduces
-    it with a single remainder (every value stays below 3q)."""
+    x: int32 or int64 [..., L, N] (natural coefficient order); w: int64
+    [L, N]; q: int64 [L]; r: int64 [L], R mod q, multiplied in on load
+    (to_mont), or None.  Returns out_dtype [..., L, N] in bit-reversed eval
+    order.  Each stage writes u + w*v and u - w*v + q into one buffer and
+    reduces it with a single remainder (every value stays below 3q)."""
     shape = x.shape
     n, L = shape[-1], shape[-2]
     qc = q.reshape(L, 1, 1)
+    x = x.long()
+    if r is not None:
+        x = x.remainder(q.reshape(L, 1)) * r.reshape(L, 1) % q.reshape(L, 1)
     m = 1
     while m < n:
         t = n // (2 * m)
@@ -119,16 +133,20 @@ def ntt_fwd_plain(x: torch.Tensor, w: torch.Tensor,
         out.remainder_(qc.unsqueeze(-1))
         x = out.reshape(shape)
         m *= 2
-    return x
+    return x.to(out_dtype)
 
 
 def ntt_inv_plain(x: torch.Tensor, wi: torch.Tensor, q: torch.Tensor,
-                  ninv: torch.Tensor) -> torch.Tensor:
-    """Inverse negacyclic NTT, the kernel's plain version: bit-reversed eval order -> natural order.
-    Each stage writes u + v and (u - v + q) * w, then one remainder."""
+                  ninv: torch.Tensor, rinv: torch.Tensor | None = None,
+                  out_dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Inverse negacyclic NTT, the kernel's plain version: bit-reversed
+    eval order -> natural order, times N^-1 and, given rinv [L] (2^-32 mod
+    q), times rinv (from_mont).  Each stage writes u + v and (u - v + q) *
+    w, then one remainder."""
     shape = x.shape
     n, L = shape[-1], shape[-2]
     qc = q.reshape(L, 1, 1)
+    x = x.long()
     t = 1
     m = n // 2
     while m >= 1:
@@ -144,7 +162,10 @@ def ntt_inv_plain(x: torch.Tensor, wi: torch.Tensor, q: torch.Tensor,
         x = out.reshape(shape)
         t *= 2
         m //= 2
-    return rns.shoup_mul(x, ninv.reshape(L, 1), q.reshape(L, 1))
+    x = rns.shoup_mul(x, ninv.reshape(L, 1), q.reshape(L, 1))
+    if rinv is not None:
+        x = rns.from_mont(x, q.reshape(L, 1), rinv.reshape(L, 1))
+    return x.to(out_dtype)
 
 
 def shoup_table(w: np.ndarray, q: np.ndarray) -> np.ndarray:
@@ -154,16 +175,28 @@ def shoup_table(w: np.ndarray, q: np.ndarray) -> np.ndarray:
     return ((w << np.uint64(32)) // qq).astype(np.uint32)
 
 
+def mont_factors(q) -> tuple[np.ndarray, np.ndarray]:
+    """(R mod q, R^-1 mod q) per prime, uint64, R = 2^32."""
+    qs = [int(v) for v in np.asarray(q).reshape(-1)]
+    return (np.asarray([R32 % v for v in qs], dtype=np.uint64),
+            np.asarray([pow(R32, -1, v) for v in qs], dtype=np.uint64))
+
+
 def kernel_tables(w, wi, ninv, q) -> dict:
     """The kernels' host tables (uint32): w, w_sh, wi, wi_sh [L, N] and the
-    per-row constants rowc [L, 5] = (q, ninv, ninv_sh, wi[1]*ninv mod q,
-    its companion): the inverse's last stage multiplies u+v by ninv and
-    u-v by wi[1]*ninv."""
+    per-row constants rowc [L, 11] = (q, ninv, its companion, wi[1]*ninv
+    mod q, its companion, R mod q, its companion, ninv*R^-1 mod q, its
+    companion, wi[1]*ninv*R^-1 mod q, its companion): the inverse's last
+    stage multiplies u+v by ninv and u-v by wi[1]*ninv (times R^-1 with
+    from_mont); the forward multiplies its input by R with to_mont."""
     qh = np.asarray(q, dtype=np.uint64)
     ninv = np.asarray(ninv, dtype=np.uint64)
     wi1n = np.asarray(wi, dtype=np.uint64)[:, 1] * ninv % qh
-    rowc = np.stack([qh, ninv, shoup_table(ninv, qh), wi1n,
-                     shoup_table(wi1n, qh)], axis=1).astype(np.uint32)
+    r, rinv = mont_factors(qh)
+    consts = [ninv, wi1n, r, ninv * rinv % qh, wi1n * rinv % qh]
+    rowc = np.stack([qh] + [a for c in consts
+                            for a in (c, shoup_table(c, qh))],
+                    axis=1).astype(np.uint32)
     return dict(w=np.asarray(w, dtype=np.uint32), w_sh=shoup_table(w, qh),
                 wi=np.asarray(wi, dtype=np.uint32), wi_sh=shoup_table(wi, qh),
                 rowc=rowc)
@@ -177,11 +210,12 @@ def _bits32(a: np.ndarray, device) -> torch.Tensor:
 
 class DeviceNTT:
     """The NTT tables of one prime set on one device, uploaded once: the
-    plain version's int64 w, wi [Lt, N], q, ninv [Lt]; on a CUDA device
-    also the kernels' 32-bit tables (uint32 bits in int32 tensors): w, w_sh,
-    wi, wi_sh [Lt, N] and the per-row constants [Lt, 5] (q, ninv, ninv_sh,
-    wi[1]*ninv mod q and its companion, the inverse's folded last stage).
-    `rows(sel)` returns the cached `NTTRows` of a row selection."""
+    plain version's int64 w, wi [Lt, N], q, ninv, r (R mod q), rinv (R^-1
+    mod q) [Lt]; on a CUDA device also the kernels' 32-bit tables (uint32
+    bits in int32 tensors): w, w_sh, wi, wi_sh [Lt, N] and the per-row
+    constants [Lt, 11] (`kernel_tables`: the folded N^-1 and Montgomery
+    factors).  `rows(sel)` returns the cached `NTTRows` of a row
+    selection."""
 
     def __init__(self, w, wi, ninv, q, device):
         self.device = torch.device(device)
@@ -199,6 +233,7 @@ class DeviceNTT:
 
         self.w, self.wi = dev64(w), dev64(wi)
         self.q, self.ninv = dev64(qh), dev64(ninv)
+        self.r, self.rinv = (dev64(a) for a in mont_factors(qh))
         self._rows: dict[tuple, NTTRows] = {}
         if self.device.type == "cuda":
             k = kernel_tables(w, wi, ninv, qh)
@@ -218,8 +253,8 @@ class DeviceNTT:
 class NTTRows:
     """A row selection of a DeviceNTT: the table row of each data row, on
     the device as an int32 vector for the kernels, and the plain version's
-    q, ninv and (on demand) w, wi rows: a view when the rows are one
-    contiguous run, else gathered per call."""
+    q, ninv, r, rinv and (on demand) w, wi rows: a view when the rows are
+    one contiguous run, else gathered per call."""
 
     def __init__(self, tabs: DeviceNTT, rows: tuple[int, ...]):
         self.tabs = tabs
@@ -228,6 +263,8 @@ class NTTRows:
         self.rows_dev = idx.to(torch.int32)
         self.q = tabs.q[idx]
         self.ninv = tabs.ninv[idx]
+        self.r = tabs.r[idx]
+        self.rinv = tabs.rinv[idx]
         runs = []
         for r in rows:
             if runs and runs[-1][1] == r:
@@ -249,9 +286,12 @@ class NTTRows:
         return self._take(self.tabs.wi)
 
 
-def _check(name: str, x: torch.Tensor, t: NTTRows):
-    if x.dtype != torch.int64:
-        raise TypeError(f"{name}: x must be int64, got {x.dtype}")
+def _check(name: str, x: torch.Tensor, t: NTTRows, out_dtype):
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{name}: x must be int32 or int64, got {x.dtype}")
+    if out_dtype not in DTYPES:
+        raise TypeError(f"{name}: out_dtype must be int32 or int64, got "
+                        f"{out_dtype}")
     if x.dim() < 2:
         raise ValueError(f"{name}: x must be [..., L, N], got "
                          f"{tuple(x.shape)}")
@@ -267,37 +307,47 @@ def _check(name: str, x: torch.Tensor, t: NTTRows):
         raise ValueError(f"{name}: x on {x.device}, tables on {td}")
 
 
-def ntt_fwd(x: torch.Tensor, t: NTTRows) -> torch.Tensor:
-    """Forward NTT of x int64 [..., L, N] (natural order) over the rows of
-    t -> int64 [..., L, N] canonical residues in bit-reversed eval order."""
-    _check("ntt_fwd", x, t)
+def ntt_fwd(x: torch.Tensor, t: NTTRows, to_mont: bool = False,
+            out_dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Forward NTT of x int32 or int64 [..., L, N] (natural order) over the
+    rows of t -> out_dtype [..., L, N] canonical residues in bit-reversed
+    eval order; to_mont multiplies x by R = 2^32 mod q first."""
+    _check("ntt_fwd", x, t, out_dtype)
     if x.device.type == "cpu":
-        return ntt_fwd_plain(x, t.w(), t.q)
+        return ntt_fwd_plain(x, t.w(), t.q, t.r if to_mont else None,
+                             out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ntt_fwd: unsupported device {x.device}")
-    y = _launch("ntt_fwd_launch", x, t, t.tabs.k_w, t.tabs.k_wsh)
+    y = _launch("ntt_fwd_launch", x, t, t.tabs.k_w, t.tabs.k_wsh, to_mont,
+                out_dtype)
     global launches_fwd
     launches_fwd += 1
     return y
 
 
-def ntt_inv(x: torch.Tensor, t: NTTRows) -> torch.Tensor:
-    """Inverse NTT of x int64 [..., L, N] (bit-reversed eval order) over the
-    rows of t -> int64 [..., L, N] canonical residues in natural order."""
-    _check("ntt_inv", x, t)
+def ntt_inv(x: torch.Tensor, t: NTTRows, from_mont: bool = False,
+            out_dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Inverse NTT of x int32 or int64 [..., L, N] (bit-reversed eval
+    order) over the rows of t -> out_dtype [..., L, N] canonical residues
+    in natural order; from_mont multiplies the result by R^-1 mod q."""
+    _check("ntt_inv", x, t, out_dtype)
     if x.device.type == "cpu":
-        return ntt_inv_plain(x, t.wi(), t.q, t.ninv)
+        return ntt_inv_plain(x, t.wi(), t.q, t.ninv,
+                             t.rinv if from_mont else None, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ntt_inv: unsupported device {x.device}")
-    y = _launch("ntt_inv_launch", x, t, t.tabs.k_wi, t.tabs.k_wish)
+    y = _launch("ntt_inv_launch", x, t, t.tabs.k_wi, t.tabs.k_wish,
+                from_mont, out_dtype)
     global launches_inv
     launches_inv += 1
     return y
 
 
-def _launch(fn_name: str, x, t: NTTRows, w, wsh) -> torch.Tensor:
-    """One kernel call on the current stream: x is read through its batch
-    and row strides (copied only when its last axis is strided); no host
+def _launch(fn_name: str, x, t: NTTRows, w, wsh, mont: bool,
+            out_dtype) -> torch.Tensor:
+    """One kernel launch on the current stream: x is read through its batch
+    and row strides (copied only when its last axis is strided), with
+    16-byte loads where its address and strides allow; no host
     synchronisation, so it runs inside a CUDA graph capture."""
     L, n = x.shape[-2], x.shape[-1]
     logn = n.bit_length() - 1
@@ -307,43 +357,71 @@ def _launch(fn_name: str, x, t: NTTRows, w, wsh) -> torch.Tensor:
     if xb.stride(-1) != 1:
         xb = xb.contiguous()
     B = xb.shape[0]
-    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
-    scratch = (torch.empty((B, L, n), dtype=torch.int32, device=x.device)
-               if logn > ONE_PASS_LOGN else None)
+    vec = (xb.data_ptr() % 16 == 0 and xb.stride(0) % 4 == 0
+           and xb.stride(1) % 4 == 0)
     fn = getattr(_library(), fn_name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(xb.data_ptr(), xb.stride(0), xb.stride(1), y.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), w.data_ptr(),
-             wsh.data_ptr(), t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(),
-             B, L, logn, stream)
+    err = fn(xb.data_ptr(), xb.stride(0), xb.stride(1), xb.element_size(),
+             y.data_ptr(), y.element_size(), w.data_ptr(), wsh.data_ptr(),
+             t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(), B, L, logn,
+             int(mont), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
     return y
 
 
 def _library():
+    """The kernels' library: built and loaded at first use, when every
+    kernel is also allowed its dynamic shared memory (ntt_setup)."""
     lib = kernels.load("ntt")
-    for fn in (lib.ntt_fwd_launch, lib.ntt_inv_launch):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_longlong] + [ctypes.c_void_p] * 6 + \
-                [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if lib.ntt_fwd_launch.argtypes is None:
+        for fn in (lib.ntt_fwd_launch, lib.ntt_inv_launch):
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.ntt_occupancy.argtypes = [ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
+        lib.ntt_occupancy.restype = ctypes.c_int
+        lib.ntt_setup.restype = ctypes.c_int
+        err = lib.ntt_setup()
+        if err != 0:
+            lib.ntt_fwd_launch.argtypes = None
+            raise RuntimeError(f"ntt_setup failed: CUDA error {err}")
     return lib
 
 
-def bytes_moved(B: int, L: int, n: int) -> int:
-    """Least bytes a transform must move: each int64 input word read once,
-    each int64 output word written once."""
-    return 16 * B * L * n
+def occupancy(logn: int) -> dict:
+    """The launch a ring of 2^logn takes on the current card: blocks per
+    SM, clusters resident at once (0 on the one-block path), dynamic shared
+    memory bytes and threads a block."""
+    out = (ctypes.c_int * 4)()
+    err = _library().ntt_occupancy(logn, out)
+    if err != 0:
+        raise RuntimeError(f"ntt_occupancy failed: CUDA error {err}")
+    return dict(blocks_per_sm=out[0], clusters=out[1], smem_bytes=out[2],
+                threads=out[3])
 
 
-def int_mults(B: int, L: int, n: int, inverse: bool = False) -> int:
+def bytes_moved(B: int, L: int, n: int, in_bytes: int = 8,
+                out_bytes: int = 8) -> int:
+    """Least bytes a transform must move: each input word read once, each
+    output word written once (4 bytes int32, 8 int64)."""
+    return (in_bytes + out_bytes) * B * L * n
+
+
+def int_mults(B: int, L: int, n: int, inverse: bool = False,
+              to_mont: bool = False) -> int:
     """32-bit integer multiplies of the kernels' arithmetic: three per
-    Shoup product, one product per butterfly (N/2 * logN a row), and the
-    inverse's folded last stage one more per butterfly."""
+    Shoup product, one product per butterfly (N/2 * logN a row), the
+    inverse's folded last stage one more per butterfly, and to_mont one
+    per input element."""
     logn = n.bit_length() - 1
     per_row = 3 * (n // 2) * (logn + (1 if inverse else 0))
+    if to_mont and not inverse:
+        per_row += 3 * n
     return B * L * per_row

@@ -95,14 +95,19 @@ def _dev(a, tabs, rows=None):
     return t if rows is None else t.reshape(rows)
 
 
-def ntt_rows(x, tr: _RowTables):
-    """int64 [..., L, N] natural -> bit-reversed eval order (the kernel on
-    the card, its plain version on the CPU)."""
-    return ntt.ntt_fwd(x, tr.ntt)
+def ntt_rows(x, tr: _RowTables, to_mont: bool = False,
+             out_dtype=torch.int64):
+    """int32/int64 [..., L, N] natural -> bit-reversed eval order (the
+    kernel on the card, its plain version on the CPU); to_mont converts the
+    input to the Montgomery form first (rns.to_mont)."""
+    return ntt.ntt_fwd(x, tr.ntt, to_mont, out_dtype)
 
 
-def intt_rows(x, tr: _RowTables):
-    return ntt.ntt_inv(x, tr.ntt)
+def intt_rows(x, tr: _RowTables, from_mont: bool = False,
+              out_dtype=torch.int64):
+    """The inverse; from_mont converts the result out of the Montgomery
+    form (rns.from_mont)."""
+    return ntt.ntt_inv(x, tr.ntt, from_mont, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +273,7 @@ def ct_rescale(params, tabs, a):
     ql = int(params.q_primes[level])
     tr_rest = _q_tr(params, tabs, level - 1)
     tr_last = tabs.rows([level])
-    last = a[:, level:level + 1, :].long()
-    last_plain = rns.from_mont(intt_rows(last, tr_last),
-                               tr_last.q.reshape(1, -1, 1),
-                               tr_last.rinv.reshape(1, -1, 1))
+    last_plain = intt_rows(a[:, level:level + 1, :], tr_last, from_mont=True)
     q_rest = tr_rest.q.reshape(1, -1, 1)
     red = rns.barrett_reduce(last_plain, q_rest)
     rest = [int(q) for q in params.q_primes[:level]]
@@ -279,9 +281,7 @@ def ct_rescale(params, tabs, a):
                         lambda: [ql % q for q in rest]).reshape(1, -1, 1)
     lifted = torch.where(last_plain >= (ql + 1) // 2,
                          rns.sub_mod(red, ql_mod, q_rest), red)
-    lifted_m = rns.to_mont(lifted, q_rest, tr_rest.r2.reshape(1, -1, 1),
-                           tr_rest.rinv.reshape(1, -1, 1))
-    lifted_eval = ntt_rows(lifted_m, tr_rest)
+    lifted_eval = ntt_rows(lifted, tr_rest, to_mont=True)
     qlinv = tabs.const(("qlinv", level),
                        lambda: [pow(ql, -1, q) for q in rest]).reshape(1, -1, 1)
     diff = rns.sub_mod(a[:, :level, :].long(), lifted_eval, q_rest)
@@ -300,9 +300,7 @@ def ct_rescale_pair(params, tabs, a):
     qb = int(params.q_primes[level - 1])
     tr_rest = _q_tr(params, tabs, level - 2)
     tr_pair = tabs.rows([level - 1, level])
-    pair_plain = rns.from_mont(intt_rows(a[:, level - 1:, :].long(), tr_pair),
-                               tr_pair.q.reshape(1, -1, 1),
-                               tr_pair.rinv.reshape(1, -1, 1))
+    pair_plain = intt_rows(a[:, level - 1:, :], tr_pair, from_mont=True)
     v_b = pair_plain[:, 0:1, :]                          # value mod q_b
     v_a = pair_plain[:, 1:2, :]                          # value mod q_a
     # Garner: v = v_a + q_a * t,  t = (v_b - v_a) * q_a^-1 mod q_b
@@ -326,10 +324,8 @@ def ct_rescale_pair(params, tabs, a):
                        rns.shoup_mul(rns.barrett_reduce(t, q_rest), qa_mod,
                                      q_rest), q_rest)
     lifted = torch.where(high, rns.sub_mod(lift, qab_mod, q_rest), lift)
-    lifted_m = rns.to_mont(lifted, q_rest, tr_rest.r2.reshape(1, -1, 1),
-                           tr_rest.rinv.reshape(1, -1, 1))
     diff = rns.sub_mod(a[:, :level - 1, :].long(),
-                       ntt_rows(lifted_m, tr_rest), q_rest)
+                       ntt_rows(lifted, tr_rest, to_mont=True), q_rest)
     return rns.shoup_mul(diff, qab_inv, q_rest).int()
 
 
@@ -345,17 +341,14 @@ def mod_raise_core(params, tabs, a):
     q0 = int(params.q_primes[0])
     tr0 = tabs.rows([0])
     tr_all = _q_tr(params, tabs, params.top_level)
-    plain = rns.from_mont(intt_rows(a.long(), tr0), tr0.q.reshape(1, -1, 1),
-                          tr0.rinv.reshape(1, -1, 1))          # [k, 1, N]
+    plain = intt_rows(a, tr0, from_mont=True)                  # [k, 1, N]
     qv = tr_all.q.reshape(1, -1, 1)
     q0_mod = tabs.const(("q0_mod",), lambda: [q0 % int(q) for q in
                                               params.q_primes])
     red = rns.barrett_reduce(plain, qv)
     lifted = torch.where(plain >= (q0 + 1) // 2,
                          rns.sub_mod(red, q0_mod.reshape(1, -1, 1), qv), red)
-    lifted_m = rns.to_mont(lifted, qv, tr_all.r2.reshape(1, -1, 1),
-                           tr_all.rinv.reshape(1, -1, 1))
-    return ntt_rows(lifted_m, tr_all).int()
+    return ntt_rows(lifted, tr_all, to_mont=True, out_dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +381,7 @@ def ks_decompose(params, tabs, c_eval, j0: int = 0, j1: int | None = None):
     if not live:
         return padding()
     tr_q = _q_tr(params, tabs, level)
-    c_plain = rns.from_mont(intt_rows(c_eval.long(), tr_q),
-                            tr_q.q.reshape(-1, 1), tr_q.rinv.reshape(-1, 1))
+    c_plain = intt_rows(c_eval, tr_q, from_mont=True)
     q_basis = tr_b.q.reshape(1, -1, 1)
     digits = []
     for j in live:
@@ -405,10 +397,7 @@ def ks_decompose(params, tabs, c_eval, j0: int = 0, j1: int | None = None):
         terms = (y[:, None, :] * conv_w[:, :, None]) % q_basis
         digits.append(terms.sum(dim=0) % q_basis[0])
     dstack = torch.stack(digits)                                   # [d, M, N]
-    qb = tr_b.q.reshape(1, -1, 1)
-    dm = rns.to_mont(dstack, qb, tr_b.r2.reshape(1, -1, 1),
-                     tr_b.rinv.reshape(1, -1, 1))
-    out = ntt_rows(dm, tr_b).int()
+    out = ntt_rows(dstack, tr_b, to_mont=True, out_dtype=torch.int32)
     return torch.cat([out, padding()]) if npad else out
 
 
@@ -438,7 +427,7 @@ def ks_inner_and_moddown(params, tabs, d_eval, key_b, key_a, key_cap=None):
     tr_b = tabs.rows(_rows(params, level, True))
     acc = _ks_inner(d_eval, key_b, key_a, _key_rows(params, level, key_cap),
                     tr_b)
-    ba = _mod_down_specials(params, tabs, acc.long(), level).int()
+    ba = _mod_down_specials(params, tabs, acc, level).int()
     return ba[0], ba[1]
 
 
@@ -489,10 +478,10 @@ def _vhat_frac(yf, inv_p, K: int):
 
 
 def _mod_down_specials(params, tabs, x, level: int):
-    """x int64 [..., l+1+K, N] over (active q | specials) -> int64
-    [..., l+1, N] ~ x / P: one iNTT of the K special rows, the approximate
-    CRT conversion P -> active q, the centered overshoot correction, one NTT
-    of the q rows.
+    """x int32 or int64 [..., l+1+K, N] (canonical residues) over (active q
+    | specials) -> int64 [..., l+1, N] ~ x / P: one iNTT of the K special
+    rows, the approximate CRT conversion P -> active q, the centered
+    overshoot correction, one NTT of the q rows.
 
     The raw conversion sum_i y_i (P/p_i) equals [x]_P + v P for an integer
     v in [0, K); v_hat = round(sum_i y_i / p_i) in float32 removes it, the
@@ -512,8 +501,7 @@ def _mod_down_specials(params, tabs, x, level: int):
     qv = tr_q.q.reshape((1,) * nl + (lp1, 1))
     ps = tr_s.q.reshape((1,) * nl + (K, 1))
 
-    d_plain = rns.from_mont(intt_rows(x[..., lp1:, :], tr_s), ps,
-                            tr_s.rinv.reshape((1,) * nl + (K, 1)))
+    d_plain = intt_rows(x[..., lp1:, :], tr_s, from_mont=True)
     y = rns.shoup_mul(d_plain, shp("inv_w", K), ps)
     conv_w = tabs.const(("md", level, "conv_w"), lambda: mdt["conv_w"])
     conv = None
@@ -531,9 +519,8 @@ def _mod_down_specials(params, tabs, x, level: int):
     corr = rns.shoup_mul(vhat, shp("pmod_w", lp1), qv)
     conv = rns.sub_mod(conv, corr, qv)
 
-    conv_m = rns.to_mont(conv, qv, tr_q.r2.reshape((1,) * nl + (lp1, 1)),
-                         tr_q.rinv.reshape((1,) * nl + (lp1, 1)))
-    diff = rns.sub_mod(x[..., :lp1, :], ntt_rows(conv_m, tr_q), qv)
+    diff = rns.sub_mod(x[..., :lp1, :].long(),
+                       ntt_rows(conv, tr_q, to_mont=True), qv)
     return rns.shoup_mul(diff, shp("pinv_w", lp1), qv)
 
 
@@ -550,15 +537,12 @@ def _mod_down_specials_exact(params, tabs, x, level: int):
     for si in range(K):
         p = int(params.special_primes[si])
         tr_s = tabs.rows([params.num_q + si])
-        d_plain = rns.from_mont(intt_rows(spec[si], tr_s),
-                                tr_s.q.reshape(-1, 1), tr_s.rinv.reshape(-1, 1))
+        d_plain = intt_rows(spec[si], tr_s, from_mont=True)
         neg_branch = d_plain >= (p + 1) // 2
         red = rns.barrett_reduce(d_plain, qv)
         p_mod = _dev([p % q for q in q_list], tabs, (-1, 1))
         lifted = torch.where(neg_branch, rns.sub_mod(red, p_mod, qv), red)
-        lifted_m = rns.to_mont(lifted, qv, tr_q.r2.reshape(-1, 1),
-                               tr_q.rinv.reshape(-1, 1))
-        diff = rns.sub_mod(cur, ntt_rows(lifted_m, tr_q), qv)
+        diff = rns.sub_mod(cur, ntt_rows(lifted, tr_q, to_mont=True), qv)
         cur = rns.shoup_mul(diff, _dev([pow(p, -1, q) for q in q_list], tabs,
                                        (-1, 1)), qv)
         for sj in range(si + 1, K):
@@ -567,8 +551,7 @@ def _mod_down_specials_exact(params, tabs, x, level: int):
             redj = rns.barrett_reduce(d_plain, pj)
             liftedj = torch.where(neg_branch,
                                   rns.sub_mod(redj, p % pj, pj), redj)
-            lm = rns.to_mont(liftedj, pj, trj.r2.reshape(-1, 1),
-                             trj.rinv.reshape(-1, 1))
-            dj = rns.sub_mod(spec[sj], ntt_rows(lm, trj), pj)
+            dj = rns.sub_mod(spec[sj], ntt_rows(liftedj, trj, to_mont=True),
+                             pj)
             spec[sj] = rns.shoup_mul(dj, pow(p, -1, pj), pj)
     return cur

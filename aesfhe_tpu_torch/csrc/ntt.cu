@@ -18,54 +18,96 @@
 // which is w[l, m + i] as core/ntt.py:NTTTables lays it out.
 //
 // Arithmetic: 32-bit residues (every prime is below 2^30), Shoup products
-// with the host's companions w_sh = floor(w * 2^32 / q); every stage keeps
-// its outputs canonical, so the result equals the plain int64 version's
-// residue for residue.  The input is int64 as the port's callers hold it and
-// is reduced on load (floor mod), so any int64 gives NTT(x mod q), the plain
-// version's result wherever that one does not overflow.
+// with the host's companions w_sh = floor(w * 2^32 / q); every butterfly
+// keeps its outputs canonical, so any schedule of the network gives the
+// plain int64 version's residues exactly.
 //
-// Bound: memory.  Each int64 input word is read once and each int64 output
-// word written once: 16 bytes per element, against 3 integer multiplies per
-// butterfly (N/2 * logN butterflies per row): at N=2^16 that is 24 multiplies
-// per element, ~1.4 ps at the card's 32-bit multiply rate against ~4.8 ps
-// for the 16 bytes at 3.35 TB/s.  The design:
-//   - two passes for N > 2^12 (one for smaller N, whose row fits one
-//     block's shared memory): the first ceil(logN/2) stages as sub-transforms
-//     over the strided columns {r + S*k} (S = N >> those stages), then the
-//     last floor(logN/2) stages over contiguous runs of 2^floor(logN/2);
-//     the inverse runs the two in the other order.  Each pass holds
-//     kTile = 4096 residues of one row in shared memory (16 strided columns
-//     side by side, so neighbouring threads load neighbouring words) and
-//     runs all of its stages there, one __syncthreads() apart;
-//   - a uint32 scratch buffer between the passes (the wrapper allocates
-//     it), so the data cross device memory as 8 + 4 + 4 + 8 = 24 bytes per
-//     element: at most 2/3 of the bound;
-//   - grid (groups / groups per block, L, B): one block row per data row and
-//     batch entry; a row vector maps each data row to its table row, so one
-//     upload of the [L_tot, N] tables serves every row selection.
-// Not done here (later work): one launch for both passes, vectorised
-// loads, TMA.
+// Contract (core/ntt.py's wrappers): input int32 (canonical residues, read
+// as they are) or int64 (any value, reduced on load: floor mod); output
+// int32 or int64, contiguous [B, L, N]; `mont` folds the Montgomery
+// conversions in: the forward multiplies each input by R = 2^32 mod q on
+// load (one Shoup product), the inverse uses N^-1*R^-1 and
+// wi[1]*N^-1*R^-1 in its last stage (no extra product).  rowc [L_tot, 11]
+// per table row: q, N^-1, its companion, wi[1]*N^-1, its companion, R, its
+// companion, N^-1*R^-1, its companion, wi[1]*N^-1*R^-1, its companion.
+//
+// Bound: memory.  Each input word read once and each output word written
+// once: 8 bytes per element int32 in and out (16 int64), against 3 32-bit
+// multiplies per butterfly (24 per element at N = 2^16: ~1.4 ps at the
+// card's multiply rate against ~2.4 ps for 8 bytes at 3.35 TB/s).  The
+// design, one launch per transform and no global scratch:
+//   - radix in registers: a thread holds the 2^r residues (r = 2 or 3) of
+//     one group of a pass, runs r stages on them, and writes them back;
+//     a pass is one shared-memory round trip and one barrier;
+//   - shared memory padded one word per 32 (position p at p + p/32): a
+//     pass whose lowest bit is >= 5 puts the lanes of a warp on positions
+//     0..31 (consecutive words), one below 5 on the positions just above
+//     the pass (a 32-word stride): either way 32 distinct banks;
+//   - N >= 2^16 (kClusterMinLog): a cluster of kCluster = 8 blocks holds
+//     one row (2 x 33 KB of residues a block at 2^16).  The first
+//     logN - 8 stages run as sub-transforms of the columns {c + 256 k}
+//     (block r holds the 32 columns from 32 r, read straight from global
+//     memory into the first pass, 32 consecutive words a warp); after a
+//     cluster barrier each block reads its 2^(logN-11) contiguous runs of
+//     256 from the other blocks' shared memory (distributed shared memory,
+//     map_shared_rank) into its first run pass, and writes the last pass
+//     straight to global memory (4 consecutive words a thread, one vector
+//     store).  The inverse runs the two halves in the other order.  The
+//     first half's twiddles (indices below 2^(logN-8)) are staged in
+//     shared memory; the second half's come through L2, and the grid puts
+//     the batch on its fastest axis, so the B clusters of one row run
+//     together and fetch its tables once;
+//   - N <= 2^15: one block holds a whole row (several rows for N < 2^11,
+//     kTileLog), loaded and stored in a coalesced pass of its own;
+//   - the kernels read x through its batch and row strides, and a row
+//     vector maps each data row to its table row, so one upload of the
+//     [L_tot, N] tables serves every row selection.
+// What holds them is instruction issue and latency, not bytes (PERF.md):
+// so a thread takes two groups at a time (their loads overlap), addresses
+// a group's words at one base and a constant stride, checks a group's int64
+// words for canonical values once (the floor mod only off that path) and
+// reduces with one unsigned minimum.  Loads are plain coalesced loads (no
+// TMA or cp.async): each residue is read once, straight into the registers
+// of its first pass.  Dynamic shared memory above 48 KB is allowed once, in
+// ntt_setup, when the library loads (never inside a CUDA graph capture).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileLog = 12;            // residues a block holds: 4096
-constexpr int kOnePassLog = kTileLog;   // N <= 2^12: one pass
 constexpr int kMaxLog = 17;
-constexpr int kRowConsts = 5;           // q, ninv, ninv_sh, wi1n, wi1n_sh
+constexpr int kClusterMinLog = 16;      // from here a cluster holds a row
+constexpr int kClusterLog = 3;
+constexpr int kCluster = 1 << kClusterLog;
+constexpr int kRunLog = 8;              // cluster path: runs of 2^8
+constexpr int kColLog = kRunLog - kClusterLog;   // 32 columns a block
+constexpr int kTileLog = 11;            // one-block path: >= 2^11 a block
+constexpr int kBlocksPerSm = 3;         // cluster path at N = 2^16
+constexpr int kRowConsts = 11;
+constexpr int kFoldPlain = 1;           // rowc offsets of the fold constants
+constexpr int kFoldMont = 7;
+constexpr int kMontR = 5;
 
+__device__ __forceinline__ int pad(int p) { return p + (p >> 5); }
+
+// The reductions take the unsigned minimum of x and x - q (or x + q): the
+// wrapped candidate is the larger one, so one instruction picks the
+// canonical residue.
 __device__ __forceinline__ uint32_t add_q(uint32_t a, uint32_t b,
                                           uint32_t q) {
   const uint32_t s = a + b;
-  return s >= q ? s - q : s;
+  return min(s, s - q);
 }
 
 __device__ __forceinline__ uint32_t sub_q(uint32_t a, uint32_t b,
                                           uint32_t q) {
-  return a >= b ? a - b : a + q - b;
+  const uint32_t d = a - b;
+  return min(d, d + q);
 }
 
 // a * w mod q for a < 2^32, w < q < 2^31, wsh = floor(w * 2^32 / q): the
@@ -73,7 +115,7 @@ __device__ __forceinline__ uint32_t sub_q(uint32_t a, uint32_t b,
 __device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w,
                                           uint32_t wsh, uint32_t q) {
   const uint32_t r = a * w - __umulhi(a, wsh) * q;
-  return r >= q ? r - q : r;
+  return min(r, r - q);
 }
 
 __device__ __forceinline__ uint32_t load_residue(long long x, uint32_t q) {
@@ -82,174 +124,678 @@ __device__ __forceinline__ uint32_t load_residue(long long x, uint32_t q) {
   return static_cast<uint32_t>(r < 0 ? r + q : r);
 }
 
-__device__ __forceinline__ uint32_t load_residue(uint32_t x, uint32_t) {
-  return x;
+__device__ __forceinline__ uint32_t load_residue(int32_t x, uint32_t) {
+  return static_cast<uint32_t>(x);
 }
 
-__device__ __forceinline__ void store(long long* p, uint32_t v) { *p = v; }
-__device__ __forceinline__ void store(uint32_t* p, uint32_t v) { *p = v; }
+// The residues of a group's 2^kR input words, all loaded before this (so
+// the loads issue together): int64 words take the floor mod on a path of
+// their own, entered once for the group when any word lies outside [0, q).
+template <int kR>
+__device__ __forceinline__ void residues(const int32_t (&raw)[1 << kR],
+                                         uint32_t (&v)[1 << kR], uint32_t) {
+#pragma unroll
+  for (int j = 0; j < (1 << kR); ++j) v[j] = static_cast<uint32_t>(raw[j]);
+}
 
-// One pass: logp consecutive stages of the 2^logp-point sub-transforms they
-// split into, for one row of one batch entry.
-//   kStrided: stages 0 .. logp-1; group g < S = N >> logp holds the elements
-//             g + S*k, k < 2^logp;
-//   else:     stages logN-logp .. logN-1; group g holds g*2^logp + k.
-// The block takes 2^logc consecutive groups.  Shared position of (group gl,
-// point k): k*C + gl when strided (neighbouring threads on neighbouring
-// columns), gl*P + k otherwise; either way the e-th load of the block goes
-// to position e.  Forward runs the stages upward, inverse downward.
-template <bool kFwd, bool kStrided, typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
-ntt_pass(const Tin* __restrict__ x, long long x_bs, long long x_rs,
-         Tout* __restrict__ y, const uint32_t* __restrict__ w,
-         const uint32_t* __restrict__ wsh,
-         const uint32_t* __restrict__ rowc,
-         const int32_t* __restrict__ rows, int L, int logn, int logp,
-         int logc) {
-  __shared__ uint32_t buf[1 << kTileLog];
-  const int l = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long trow = rows[l];
-  const uint32_t* __restrict__ tw = w + (trow << logn);
-  const uint32_t* __restrict__ tsh = wsh + (trow << logn);
-  const uint32_t* __restrict__ rc = rowc + trow * kRowConsts;
-  const uint32_t q = rc[0];
-  const int P = 1 << logp;
-  const int C = 1 << logc;
-  const int E = P << logc;
-  const int g0 = blockIdx.x << logc;
-  const int col_shift = logn - logp;      // strided: log2 S
-  const Tin* __restrict__ xr = x + b * x_bs + l * x_rs;
-  Tout* __restrict__ yr = y + ((static_cast<long long>(b) * L + l) << logn);
-
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const int idx = kStrided
-        ? g0 + (e & (C - 1)) + ((e >> logc) << col_shift)
-        : (g0 << logp) + e;
-    buf[e] = load_residue(xr[idx], q);
+template <int kR>
+__device__ __forceinline__ void residues(const long long (&raw)[1 << kR],
+                                         uint32_t (&v)[1 << kR], uint32_t q) {
+  bool canonical = true;
+#pragma unroll
+  for (int j = 0; j < (1 << kR); ++j)
+    canonical &= static_cast<unsigned long long>(raw[j]) < q;
+  if (canonical) {
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) v[j] = static_cast<uint32_t>(raw[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) v[j] = load_residue(raw[j], q);
   }
-  __syncthreads();
+}
 
-  const int s_lo = kStrided ? 0 : logn - logp;
-  const int half = E >> 1;
-  for (int j = 0; j < logp; ++j) {
-    const int s = kFwd ? s_lo + j : s_lo + logp - 1 - j;
-    const int logt = logp - 1 - (s - s_lo);     // local half-span, log2
-    const int tl = 1 << logt;
-    const bool fold = !kFwd && s == 0;
-    for (int bf = threadIdx.x; bf < half; bf += kThreads) {
-      int gl, i;
-      if (kStrided) {
-        gl = bf & (C - 1);
-        i = bf >> logc;
-      } else {
-        gl = bf >> (logp - 1);
-        i = bf & ((P >> 1) - 1);
+// Four consecutive input words at p (16-byte aligned).
+__device__ __forceinline__ void load4(const int32_t* p, int32_t* v) {
+  const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const long long* p, long long* v) {
+  const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p));
+  const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void put(int32_t* p, uint32_t v) {
+  *p = static_cast<int32_t>(v);
+}
+
+__device__ __forceinline__ void put(long long* p, uint32_t v) { *p = v; }
+
+__device__ __forceinline__ void put4(int32_t* p, const uint32_t* v) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void put4(long long* p, const uint32_t* v) {
+  auto* o = reinterpret_cast<longlong2*>(p);
+  o[0] = make_longlong2(v[0], v[1]);
+  o[1] = make_longlong2(v[2], v[3]);
+}
+
+// ---------------------------------------------------------------------------
+// One radix pass
+// ---------------------------------------------------------------------------
+
+// The 2^kR residues v[j] of one group (positions base + (j << pb0)) run the
+// kR stages s0 .. s0+kR-1 (forward upward, inverse downward).  Stage s0+i
+// pairs j with j + 2^(kR-1-i) under the twiddle index
+// 2^(s0+i) + (gb << i) + (j >> (kR-i)), gb the row index's bits above the
+// pass; the inverse's stage 0 takes the folded constants f[0..3] instead.
+template <int kR, bool kFwd, class Tw>
+__device__ __forceinline__ void radix(uint32_t (&v)[1 << kR], int s0, int gb,
+                                      uint32_t q, const Tw& tw,
+                                      const uint32_t* f) {
+  constexpr int R = 1 << kR;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int i = kFwd ? k : kR - 1 - k;
+    const int half = R >> (i + 1);
+#pragma unroll
+    for (int tg = 0; tg < (1 << i); ++tg) {
+      const int j0 = tg * (R >> i);
+      if (!kFwd && s0 + i == 0) {
+#pragma unroll
+        for (int jj = 0; jj < half; ++jj) {
+          const uint32_t u = v[j0 + jj], x = v[j0 + jj + half];
+          v[j0 + jj] = shoup(add_q(u, x, q), f[0], f[1], q);
+          v[j0 + jj + half] = shoup(sub_q(u, x, q), f[2], f[3], q);
+        }
+        continue;
       }
-      const int ku = ((i >> logt) << (logt + 1)) | (i & (tl - 1));
-      const int kv = ku + tl;
-      const int idx_u = kStrided ? g0 + gl + (ku << col_shift)
-                                 : ((g0 + gl) << logp) + ku;
-      const int pu = kStrided ? ku * C + gl : gl * P + ku;
-      const int pv = kStrided ? kv * C + gl : gl * P + kv;
-      const int ti = (1 << s) + (idx_u >> (logn - s));
-      const uint32_t u = buf[pu];
-      const uint32_t v = buf[pv];
-      if (kFwd) {
-        const uint32_t wv = shoup(v, __ldg(tw + ti), __ldg(tsh + ti), q);
-        buf[pu] = add_q(u, wv, q);
-        buf[pv] = sub_q(u, wv, q);
-      } else if (fold) {
-        buf[pu] = shoup(add_q(u, v, q), rc[1], rc[2], q);
-        buf[pv] = shoup(sub_q(u, v, q), rc[3], rc[4], q);
-      } else {
-        buf[pu] = add_q(u, v, q);
-        buf[pv] = shoup(sub_q(u, v, q), __ldg(tw + ti), __ldg(tsh + ti), q);
+      uint32_t w, wsh;
+      tw((1 << (s0 + i)) + (gb << i) + tg, w, wsh);
+#pragma unroll
+      for (int jj = 0; jj < half; ++jj) {
+        const uint32_t u = v[j0 + jj], x = v[j0 + jj + half];
+        if (kFwd) {
+          const uint32_t t = shoup(x, w, wsh, q);
+          v[j0 + jj] = add_q(u, t, q);
+          v[j0 + jj + half] = sub_q(u, t, q);
+        } else {
+          v[j0 + jj] = add_q(u, x, q);
+          v[j0 + jj + half] = shoup(sub_q(u, x, q), w, wsh, q);
+        }
       }
     }
+  }
+}
+
+// A pass over a buffer of 2^nbits positions: group g (2^(nbits-kR) of
+// them) takes the positions base + (j << pb0), j < 2^kR.  Lanes take the
+// low position bits when pb0 >= 5, else the bits from pb0 + kR up.
+// ctx(base) gives the group's q, twiddle source and fold constants; boff
+// is added to the group's index bits above the pass (the block's first run
+// on the cluster path).
+template <int kR, bool kFwd, class Src, class Dst, class Ctx>
+__device__ __forceinline__ void pass(int nbits, int pb0, int s0, int boff,
+                                     const Src& src, const Dst& dst,
+                                     const Ctx& ctx) {
+  constexpr int R = 1 << kR;
+  const int top = pb0 + kR;
+  const int nh = nbits - top;
+  const int groups = 1 << (nbits - kR);
+#pragma unroll 2
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
+    const int base = pb0 >= 5
+        ? ((g >> pb0) << top) | (g & ((1 << pb0) - 1))
+        : ((g & ((1 << nh) - 1)) << top) | (g >> nh);
+    const int gb = ((base >> top) & ((1 << s0) - 1)) + boff;
+    uint32_t v[R];
+    src.template load<kR>(v, base, pb0);
+    radix<kR, kFwd>(v, s0, gb, ctx.q(base), ctx.tw(base), ctx.fold(base));
+    dst.template store<kR>(v, base, pb0);
+  }
+}
+
+struct GlobalTw {
+  const uint32_t* __restrict__ w;
+  const uint32_t* __restrict__ wsh;
+  __device__ __forceinline__ void operator()(int ti, uint32_t& a,
+                                             uint32_t& b) const {
+    a = __ldg(w + ti);
+    b = __ldg(wsh + ti);
+  }
+};
+
+struct SmemTw {
+  const uint32_t* w;
+  const uint32_t* wsh;
+  __device__ __forceinline__ void operator()(int ti, uint32_t& a,
+                                             uint32_t& b) const {
+    a = w[ti];
+    b = wsh[ti];
+  }
+};
+
+// One row for every group (the cluster path).
+template <class Tw>
+struct RowCtx {
+  uint32_t q_;
+  Tw tw_;
+  const uint32_t* f_;
+  __device__ __forceinline__ uint32_t q(int) const { return q_; }
+  __device__ __forceinline__ const Tw& tw(int) const { return tw_; }
+  __device__ __forceinline__ const uint32_t* fold(int) const { return f_; }
+};
+
+// A pass's bits never straddle bit 5 (pb0 >= 5, or pb0 + kR <= 5), so
+// position base + (j << pb0) sits at pad(base) + j * stride(pb0).
+__device__ __forceinline__ int stride(int pb0) {
+  return pb0 >= 5 ? (1 << pb0) + (1 << (pb0 - 5)) : 1 << pb0;
+}
+
+struct SmemBuf {
+  uint32_t* p;
+  template <int kR>
+  __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
+                                       int pb0) const {
+    const uint32_t* b = p + pad(base);
+    const int st = stride(pb0);
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) v[j] = b[j * st];
+  }
+  template <int kR>
+  __device__ __forceinline__ void store(const uint32_t (&v)[1 << kR],
+                                        int base, int pb0) const {
+    uint32_t* b = p + pad(base);
+    const int st = stride(pb0);
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) b[j * st] = v[j];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Cluster path (N >= 2^16): the layouts and their maps
+// ---------------------------------------------------------------------------
+// Column layout (a block's 32 columns): position p = k * 32 + cl holds the
+// row index (k << 8) | (32 * rank + cl).  Run layout (a block's runs from
+// h0 = rank * H): position p = hl * 256 + c holds (h0 + hl) << 8 | c.
+
+// Global memory through the column layout (the forward's first pass; with
+// to_mont the input's Montgomery factor on load).  Passes over k bits
+// (pb0 >= 5): element j is row index col(base) + (j << (pb0 + 3)).
+__device__ __forceinline__ int col_index(int p, int c0) {
+  return ((p >> kColLog) << kRunLog) | (c0 + (p & 31));
+}
+
+template <typename Tin>
+struct ColIn {
+  const Tin* __restrict__ x;
+  int c0;
+  uint32_t q, r, rsh;
+  bool mont;
+  template <int kR>
+  __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
+                                       int pb0) const {
+    const Tin* b = x + col_index(base, c0);
+    const int st = 1 << (pb0 + kRunLog - kColLog);
+    Tin raw[1 << kR];
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) raw[j] = __ldg(b + j * st);
+    residues<kR>(raw, v, q);
+    if (mont) {
+#pragma unroll
+      for (int j = 0; j < (1 << kR); ++j) v[j] = shoup(v[j], r, rsh, q);
+    }
+  }
+};
+
+template <typename Tout>
+struct ColOut {
+  Tout* __restrict__ y;
+  int c0;
+  template <int kR>
+  __device__ __forceinline__ void store(const uint32_t (&v)[1 << kR],
+                                        int base, int pb0) const {
+    Tout* b = y + col_index(base, c0);
+    const int st = 1 << (pb0 + kRunLog - kColLog);
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) put(b + j * st, v[j]);
+  }
+};
+
+// Global memory through the run layout (the inverse's first pass, the
+// forward's last): 4 consecutive words a thread when pb0 == 0.
+template <typename Tin>
+struct RunIn {
+  const Tin* __restrict__ x;
+  int off;
+  uint32_t q;
+  bool vec;
+  template <int kR>
+  __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
+                                       int pb0) const {
+    Tin raw[1 << kR];
+    bool done = false;
+    if constexpr (kR >= 2) {
+      if (pb0 == 0 && vec) {
+#pragma unroll
+        for (int j = 0; j < (1 << kR); j += 4) load4(x + off + base + j,
+                                                     raw + j);
+        done = true;
+      }
+    }
+    if (!done) {
+#pragma unroll
+      for (int j = 0; j < (1 << kR); ++j)
+        raw[j] = __ldg(x + off + base + (j << pb0));
+    }
+    residues<kR>(raw, v, q);
+  }
+};
+
+template <typename Tout>
+struct RunOut {
+  Tout* __restrict__ y;
+  int off;
+  template <int kR>
+  __device__ __forceinline__ void store(const uint32_t (&v)[1 << kR],
+                                        int base, int pb0) const {
+    if constexpr (kR >= 2) {
+      if (pb0 == 0) {
+#pragma unroll
+        for (int j = 0; j < (1 << kR); j += 4) put4(y + off + base + j, v + j);
+        return;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j)
+      put(y + off + base + (j << pb0), v[j]);
+  }
+};
+
+// The forward's exchange, the first run pass (c bits [5, 8): pb0 = 5,
+// kR = 3): run-layout position base + (j << 5) of this block is column
+// layout position ((h0 + base / 256) << 5) | (base & 31) of block j.
+struct FromCols {
+  uint32_t* cols;
+  int h0;
+  template <int kR>
+  __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
+                                       int) const {
+    cg::cluster_group cluster = cg::this_cluster();
+    uint32_t* at = cols + pad(((h0 + (base >> kRunLog)) << kColLog) |
+                              (base & 31));
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j)
+      v[j] = *cluster.map_shared_rank(at, j);
+  }
+};
+
+// The inverse's exchange, the first column pass (the low k bits: pb0 = 5,
+// 2^kR <= H): column-layout position base + (j << 5) = (k + j) * 32 + cl
+// of this block is run-layout position ((k + j) % H) * 256 + c0 + cl of
+// block k / H.
+template <int kLs>
+struct FromRuns {
+  uint32_t* runs;
+  int c0;
+  template <int kR>
+  __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
+                                       int) const {
+    constexpr int kHLog = kLs - kClusterLog;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int k = base >> kColLog;
+    const uint32_t* src = cluster.map_shared_rank(
+        runs + pad(((k & ((1 << kHLog) - 1)) << kRunLog) | c0 | (base & 31)),
+        k >> kHLog);
+#pragma unroll
+    for (int j = 0; j < (1 << kR); ++j) v[j] = src[j * stride(kRunLog)];
+  }
+};
+
+template <int kLs>
+constexpr int cluster_words() {
+  // two layouts of 2^(kLs+5) padded positions, then the first half's
+  // twiddles and companions (2^kLs each)
+  return 2 * ((1 << (kLs + kColLog)) + (1 << (kLs + kColLog - 5))) +
+         2 * (1 << kLs);
+}
+
+// Grid: kCluster blocks per (batch entry, row), the batch fastest.
+template <bool kFwd, int kLs, typename Tin, typename Tout>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, kLs == 8 ? kBlocksPerSm : 1)
+ntt_cluster(const Tin* __restrict__ x, long long x_bs, long long x_rs,
+            Tout* __restrict__ y, const uint32_t* __restrict__ w,
+            const uint32_t* __restrict__ wsh,
+            const uint32_t* __restrict__ rowc,
+            const int32_t* __restrict__ rows, int B, int L, int mont,
+            int vec) {
+  constexpr int kLogn = kLs + kRunLog;
+  constexpr int kNb = kLs + kColLog;        // positions a block, log2
+  constexpr int kWords = (1 << kNb) + (1 << (kNb - 5));
+  constexpr int kHLog = kLs - kClusterLog;  // runs a block, log2
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* const cols = smem;
+  uint32_t* const runs = smem + kWords;
+  uint32_t* const sw = smem + 2 * kWords;
+  uint32_t* const ssh = sw + (1 << kLs);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cid = static_cast<int>(blockIdx.x >> kClusterLog);
+  const int b = cid % B;
+  const int l = cid / B;
+  const long long trow = rows[l];
+  const uint32_t* tw = w + (trow << kLogn);
+  const uint32_t* tsh = wsh + (trow << kLogn);
+  const uint32_t* rc = rowc + trow * kRowConsts;
+  const uint32_t q = rc[0];
+  for (int i = threadIdx.x; i < (1 << kLs); i += kThreads) {
+    sw[i] = __ldg(tw + i);
+    ssh[i] = __ldg(tsh + i);
+  }
+  const Tin* xr = x + b * x_bs + l * x_rs;
+  Tout* yr = y + ((static_cast<long long>(b) * L + l) << kLogn);
+  const int h0 = rank << kHLog;
+  const int c0 = rank << kColLog;
+  const RowCtx<SmemTw> colc{q, SmemTw{sw, ssh},
+                            rc + (mont ? kFoldMont : kFoldPlain)};
+  const RowCtx<GlobalTw> runc{q, GlobalTw{tw, tsh}, colc.f_};
+  const SmemBuf cb{cols}, rb{runs};
+  // run passes: c bits [5, 8), [2, 5), [0, 2) at stages kLs, kLs+3, kLs+6
+  if (kFwd) {
+    __syncthreads();
+    // column passes: k bits from the top, 3 at a time (kLs = 9: 3 + 3 + 3;
+    // kLs = 8: 3 + 3 + 2), at position bits 5 + k bit
+    const ColIn<Tin> in{xr, c0, q, rc[kMontR], rc[kMontR + 1], mont != 0};
+    pass<3, true>(kNb, kColLog + kLs - 3, 0, 0, in, cb, colc);
+    __syncthreads();
+    pass<3, true>(kNb, kColLog + kLs - 6, 3, 0, cb, cb, colc);
+    __syncthreads();
+    pass<kLs - 6, true>(kNb, kColLog, 6, 0, cb, cb, colc);
+    cluster.sync();
+    pass<3, true>(kNb, 5, kLs, h0, FromCols{cols, h0}, rb, runc);
+    cluster.sync();
+    pass<3, true>(kNb, 2, kLs + 3, h0 << 3, rb, rb, runc);
+    __syncthreads();
+    pass<2, true>(kNb, 0, kLs + 6, h0 << 6, rb,
+                  RunOut<Tout>{yr, h0 << kRunLog}, runc);
+  } else {
+    pass<2, false>(kNb, 0, kLs + 6, h0 << 6,
+                   RunIn<Tin>{xr, h0 << kRunLog, q, vec != 0}, rb, runc);
+    __syncthreads();
+    pass<3, false>(kNb, 2, kLs + 3, h0 << 3, rb, rb, runc);
+    __syncthreads();
+    pass<3, false>(kNb, 5, kLs, h0, rb, rb, runc);
+    cluster.sync();
+    pass<kLs - 6, false>(kNb, kColLog, 6, 0, FromRuns<kLs>{runs, c0}, cb,
+                         colc);
+    cluster.sync();
+    pass<3, false>(kNb, kColLog + kLs - 6, 3, 0, cb, cb, colc);
+    __syncthreads();
+    pass<3, false>(kNb, kColLog + kLs - 3, 0, 0, cb, ColOut<Tout>{yr, c0},
+                   colc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One-block path (N <= 2^15)
+// ---------------------------------------------------------------------------
+
+// Each group's row: position p is row (p >> logn) of the block's rows.
+struct BlockCtx {
+  const uint32_t* __restrict__ w;
+  const uint32_t* __restrict__ wsh;
+  const uint32_t* __restrict__ rowc;
+  const int32_t* __restrict__ rows;
+  int fr0, nrows, L, logn, foff;
+  __device__ __forceinline__ long long trow(int base) const {
+    int fr = fr0 + (base >> logn);
+    fr = fr < nrows ? fr : nrows - 1;
+    return rows[fr % L];
+  }
+  __device__ __forceinline__ uint32_t q(int base) const {
+    return __ldg(rowc + trow(base) * kRowConsts);
+  }
+  __device__ __forceinline__ GlobalTw tw(int base) const {
+    const long long t = trow(base) << logn;
+    return GlobalTw{w + t, wsh + t};
+  }
+  __device__ __forceinline__ const uint32_t* fold(int base) const {
+    return rowc + trow(base) * kRowConsts + foff;
+  }
+};
+
+// The one-block path's passes, forward order (from the top bit): [5, logn)
+// in balanced chunks of at most 3 bits, then [2, 5) and [0, 2) (cut to
+// logn).  Returns the count; pb0[i], r[i] the i-th chunk.
+__device__ __forceinline__ int block_chunks(int logn, int* pb0, int* r) {
+  int n = 0;
+  if (logn > 5) {
+    const int wid = logn - 5;
+    const int cnt = (wid + 2) / 3;
+    int hi = logn;
+    for (int i = 0; i < cnt; ++i) {
+      const int sz = wid / cnt + (i < wid % cnt ? 1 : 0);
+      pb0[n] = hi - sz;
+      r[n++] = sz;
+      hi -= sz;
+    }
+  }
+  if (logn > 2) {
+    pb0[n] = 2;
+    r[n++] = (logn < 5 ? logn : 5) - 2;
+  }
+  pb0[n] = 0;
+  r[n++] = logn < 2 ? logn : 2;
+  return n;
+}
+
+template <bool kFwd, typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+ntt_block(const Tin* __restrict__ x, long long x_bs, long long x_rs,
+          Tout* __restrict__ y, const uint32_t* __restrict__ w,
+          const uint32_t* __restrict__ wsh,
+          const uint32_t* __restrict__ rowc,
+          const int32_t* __restrict__ rows, int B, int L, int logn,
+          int mont) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int logt = logn > kTileLog ? logn : kTileLog;
+  const int n = 1 << logn;
+  const int nrows = B * L;
+  const int fr0 = static_cast<int>(blockIdx.x) << (logt - logn);
+  for (int e = threadIdx.x; e < (1 << logt); e += kThreads) {
+    const int fr = fr0 + (e >> logn);
+    uint32_t v = 0;
+    if (fr < nrows) {
+      const int b = fr / L;
+      const int l = fr - b * L;
+      const uint32_t* rc = rowc + static_cast<long long>(rows[l]) *
+                                      kRowConsts;
+      const uint32_t q = __ldg(rc);
+      v = load_residue(__ldg(x + b * x_bs + l * x_rs + (e & (n - 1))), q);
+      if (kFwd && mont) v = shoup(v, __ldg(rc + kMontR),
+                                  __ldg(rc + kMontR + 1), q);
+    }
+    smem[pad(e)] = v;
+  }
+  __syncthreads();
+  const BlockCtx ctx{w, wsh, rowc, rows, fr0, nrows, L, logn,
+                     mont ? kFoldMont : kFoldPlain};
+  const SmemBuf sb{smem};
+  int pb0[8], r[8];
+  const int cnt = block_chunks(logn, pb0, r);
+  for (int c = 0; c < cnt; ++c) {
+    const int i = kFwd ? c : cnt - 1 - c;
+    const int s0 = logn - pb0[i] - r[i];
+    if (r[i] == 3) pass<3, kFwd>(logt, pb0[i], s0, 0, sb, sb, ctx);
+    else if (r[i] == 2) pass<2, kFwd>(logt, pb0[i], s0, 0, sb, sb, ctx);
+    else pass<1, kFwd>(logt, pb0[i], s0, 0, sb, sb, ctx);
     __syncthreads();
   }
-
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const int idx = kStrided
-        ? g0 + (e & (C - 1)) + ((e >> logc) << col_shift)
-        : (g0 << logp) + e;
-    store(yr + idx, buf[e]);
+  for (int e = threadIdx.x; e < (1 << logt); e += kThreads) {
+    const int fr = fr0 + (e >> logn);
+    if (fr < nrows)
+      put(y + (static_cast<long long>(fr) << logn) + (e & (n - 1)),
+          smem[pad(e)]);
   }
 }
 
-template <bool kFwd, bool kStrided, typename Tin, typename Tout>
-void launch_pass(const Tin* x, long long x_bs, long long x_rs, Tout* y,
-                 const uint32_t* w, const uint32_t* wsh,
-                 const uint32_t* rowc, const int32_t* rows, int B, int L,
-                 int logn, int logp, cudaStream_t stream) {
-  const int groups_log = logn - logp;   // sub-transforms per row, log2
-  const int logc = groups_log < kTileLog - logp ? groups_log
-                                                : kTileLog - logp;
-  const dim3 grid(1u << (groups_log - logc), L, B);
-  ntt_pass<kFwd, kStrided, Tin, Tout><<<grid, kThreads, 0, stream>>>(
-      x, x_bs, x_rs, y, w, wsh, rowc, rows, L, logn, logp, logc);
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+constexpr int block_bytes(int logt) {
+  return ((1 << logt) + (1 << (logt - 5))) * 4;
 }
 
-// x: int64 [B, L, N] with element strides (x_bs, x_rs, 1); y: int64
-// [B, L, N] contiguous; scratch: uint32 [B, L, N] (unused for N <= 2^12,
-// may then be null); w, wsh: [L_tot, N]; rowc: [L_tot, 5]; rows: [L].
+template <bool kFwd, typename Tin, typename Tout>
+int launch_typed(const void* xv, long long x_bs, long long x_rs, void* yv,
+                 const uint32_t* w, const uint32_t* wsh,
+                 const uint32_t* rowc, const int32_t* rows, int B, int L,
+                 int logn, int mont, int vec, cudaStream_t st) {
+  const auto* x = static_cast<const Tin*>(xv);
+  auto* y = static_cast<Tout*>(yv);
+  if (logn >= kClusterMinLog) {
+    const dim3 grid(static_cast<unsigned>(kCluster * B * L));
+    if (logn == 16)
+      ntt_cluster<kFwd, 8, Tin, Tout>
+          <<<grid, kThreads, cluster_words<8>() * 4, st>>>(
+              x, x_bs, x_rs, y, w, wsh, rowc, rows, B, L, mont, vec);
+    else
+      ntt_cluster<kFwd, 9, Tin, Tout>
+          <<<grid, kThreads, cluster_words<9>() * 4, st>>>(
+              x, x_bs, x_rs, y, w, wsh, rowc, rows, B, L, mont, vec);
+  } else {
+    const int logt = logn > kTileLog ? logn : kTileLog;
+    const int per = 1 << (logt - logn);
+    const dim3 grid(static_cast<unsigned>((B * L + per - 1) / per));
+    ntt_block<kFwd, Tin, Tout><<<grid, kThreads, block_bytes(logt), st>>>(
+        x, x_bs, x_rs, y, w, wsh, rowc, rows, B, L, logn, mont);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kFwd>
-int launch(const void* x, long long x_bs, long long x_rs, void* y,
-           void* scratch, const void* w, const void* wsh, const void* rowc,
-           const void* rows, int B, int L, int logn, void* stream) {
-  if (logn < 1 || logn > kMaxLog || B < 1 || L < 1)
+int launch(const void* x, long long x_bs, long long x_rs, int in_bytes,
+           void* y, int out_bytes, const void* w, const void* wsh,
+           const void* rowc, const void* rows, int B, int L, int logn,
+           int mont, int vec, void* stream) {
+  if (logn < 1 || logn > kMaxLog || B < 1 || L < 1 ||
+      (in_bytes != 4 && in_bytes != 8) || (out_bytes != 4 && out_bytes != 8))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xi = static_cast<const long long*>(x);
-  auto* yo = static_cast<long long*>(y);
-  auto* sc = static_cast<uint32_t*>(scratch);
   const auto* tw = static_cast<const uint32_t*>(w);
   const auto* ts = static_cast<const uint32_t*>(wsh);
   const auto* rc = static_cast<const uint32_t*>(rowc);
   const auto* rv = static_cast<const int32_t*>(rows);
   auto st = static_cast<cudaStream_t>(stream);
-  if (logn <= kOnePassLog) {
-    launch_pass<kFwd, false>(xi, x_bs, x_rs, yo, tw, ts, rc, rv, B, L, logn,
-                             logn, st);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = 1LL << logn;
-  const int lc = logn / 2;          // contiguous stages
-  const int ls = logn - lc;         // strided stages
-  if (kFwd) {
-    launch_pass<true, true>(xi, x_bs, x_rs, sc, tw, ts, rc, rv, B, L, logn,
-                            ls, st);
-    launch_pass<true, false>(static_cast<const uint32_t*>(sc), L * n, n, yo,
-                             tw, ts, rc, rv, B, L, logn, lc, st);
-  } else {
-    launch_pass<false, false>(xi, x_bs, x_rs, sc, tw, ts, rc, rv, B, L, logn,
-                              lc, st);
-    launch_pass<false, true>(static_cast<const uint32_t*>(sc), L * n, n, yo,
-                             tw, ts, rc, rv, B, L, logn, ls, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (in_bytes == 4 && out_bytes == 4)
+    return launch_typed<kFwd, int32_t, int32_t>(x, x_bs, x_rs, y, tw, ts, rc,
+                                                rv, B, L, logn, mont, vec, st);
+  if (in_bytes == 4)
+    return launch_typed<kFwd, int32_t, long long>(x, x_bs, x_rs, y, tw, ts,
+                                                  rc, rv, B, L, logn, mont,
+                                                  vec, st);
+  if (out_bytes == 4)
+    return launch_typed<kFwd, long long, int32_t>(x, x_bs, x_rs, y, tw, ts,
+                                                  rc, rv, B, L, logn, mont,
+                                                  vec, st);
+  return launch_typed<kFwd, long long, long long>(x, x_bs, x_rs, y, tw, ts,
+                                                  rc, rv, B, L, logn, mont,
+                                                  vec, st);
+}
+
+template <bool kFwd, typename Tin, typename Tout>
+void allow_smem() {
+  cudaFuncSetAttribute(ntt_cluster<kFwd, 8, Tin, Tout>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       cluster_words<8>() * 4);
+  cudaFuncSetAttribute(ntt_cluster<kFwd, 9, Tin, Tout>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       cluster_words<9>() * 4);
+  cudaFuncSetAttribute(ntt_block<kFwd, Tin, Tout>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       block_bytes(kClusterMinLog - 1));
+}
+
+template <bool kFwd>
+void allow_smem_all() {
+  allow_smem<kFwd, int32_t, int32_t>();
+  allow_smem<kFwd, int32_t, long long>();
+  allow_smem<kFwd, long long, int32_t>();
+  allow_smem<kFwd, long long, long long>();
 }
 
 }  // namespace
 
-// Each launches its passes on `stream` and returns cudaGetLastError()
-// (0 on success).  w/wsh are the forward tables (w, w_sh) for ntt_fwd and
-// the inverse ones (wi, wi_sh) for ntt_inv.
+// Allows every kernel its dynamic shared memory; call once, outside any
+// CUDA graph capture, before the first launch.  Returns cudaGetLastError().
+extern "C" int ntt_setup() {
+  allow_smem_all<true>();
+  allow_smem_all<false>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..3] for the kernel a ring of 2^logn takes: blocks per SM, clusters
+// the card can hold at once (0 on the one-block path), dynamic shared
+// memory bytes a block, threads a block.  Returns a CUDA error code.
+extern "C" int ntt_occupancy(int logn, int* out) {
+  if (logn < 1 || logn > kMaxLog)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0, clusters = 0, bytes;
+  cudaError_t err;
+  if (logn >= kClusterMinLog) {
+    const void* fn = logn == 16
+        ? reinterpret_cast<const void*>(
+              ntt_cluster<true, 8, int32_t, int32_t>)
+        : reinterpret_cast<const void*>(
+              ntt_cluster<true, 9, int32_t, int32_t>);
+    bytes = (logn == 16 ? cluster_words<8>() : cluster_words<9>()) * 4;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                        bytes);
+    if (err == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(kCluster * 1024);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = bytes;
+      err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    }
+  } else {
+    bytes = block_bytes(logn > kTileLog ? logn : kTileLog);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ntt_block<true, int32_t, int32_t>, kThreads, bytes);
+  }
+  out[0] = blocks;
+  out[1] = clusters;
+  out[2] = bytes;
+  out[3] = kThreads;
+  return static_cast<int>(err);
+}
+
+// Each launches one kernel on `stream` and returns cudaGetLastError() (0
+// on success).  x: [B, L, N] with element strides (x_bs, x_rs, 1), in_bytes
+// 4 (int32 residues) or 8 (int64, reduced on load); y: [B, L, N]
+// contiguous, out_bytes 4 or 8; w/wsh: the forward tables (w, w_sh) for
+// ntt_fwd and the inverse ones (wi, wi_sh) for ntt_inv, [L_tot, N]; rowc
+// [L_tot, 11]; rows [L]; mont: to_mont on load (forward) or from_mont
+// folded (inverse); vec: x and its strides allow 16-byte loads.
 extern "C" int ntt_fwd_launch(const void* x, long long x_bs, long long x_rs,
-                              void* y, void* scratch, const void* w,
-                              const void* wsh, const void* rowc,
-                              const void* rows, int B, int L, int logn,
+                              int in_bytes, void* y, int out_bytes,
+                              const void* w, const void* wsh,
+                              const void* rowc, const void* rows, int B,
+                              int L, int logn, int mont, int vec,
                               void* stream) {
-  return launch<true>(x, x_bs, x_rs, y, scratch, w, wsh, rowc, rows, B, L,
-                      logn, stream);
+  return launch<true>(x, x_bs, x_rs, in_bytes, y, out_bytes, w, wsh, rowc,
+                      rows, B, L, logn, mont, vec, stream);
 }
 
 extern "C" int ntt_inv_launch(const void* x, long long x_bs, long long x_rs,
-                              void* y, void* scratch, const void* w,
-                              const void* wsh, const void* rowc,
-                              const void* rows, int B, int L, int logn,
+                              int in_bytes, void* y, int out_bytes,
+                              const void* w, const void* wsh,
+                              const void* rowc, const void* rows, int B,
+                              int L, int logn, int mont, int vec,
                               void* stream) {
-  return launch<false>(x, x_bs, x_rs, y, scratch, w, wsh, rowc, rows, B, L,
-                       logn, stream);
+  return launch<false>(x, x_bs, x_rs, in_bytes, y, out_bytes, w, wsh, rowc,
+                       rows, B, L, logn, mont, vec, stream);
 }

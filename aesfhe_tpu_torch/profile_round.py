@@ -143,12 +143,13 @@ def _trace(work) -> dict:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
     device_s = sum(kernels.values()) / 1e6
     ks_s = sum(v for k, v in kernels.items() if "ks_inner" in k) / 1e6
-    # csrc/ntt.cu's passes, ntt_pass<forward?, strided?, in, out>, by the
-    # demangled or the mangled name
+    # csrc/ntt.cu's kernels, ntt_cluster<forward?, ...> and
+    # ntt_block<forward?, ...>, by the demangled or the mangled name
     ntt_s = {d: sum(v for k, v in kernels.items()
-                    if re.search(f"ntt_pass(<{flag}|ILb{bit})", k)) / 1e6
+                    if re.search(f"ntt_(cluster|block)(<{flag}|ILb{bit})",
+                                 k)) / 1e6
              for d, flag, bit in (("fwd", "true", 1), ("inv", "false", 0))}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return dict(untraced_wall_s=untraced, traced_wall_s=wall,
                 device_kernel_s=device_s,
                 device_busy_share=device_s / wall if wall else None,
@@ -158,7 +159,18 @@ def _trace(work) -> dict:
                 ntt_s=ntt_s, ntt_launches=ntt_launches,
                 ntt_share_of_device=(sum(ntt_s.values()) / device_s
                                      if device_s else None),
-                top_kernels_s=[(k[:90], v / 1e6) for k, v in top])
+                top_kernels_s=[(k[:90], _body(k), v / 1e6) for k, v in top])
+
+
+def _body(name: str) -> str:
+    """What tells torch's templated elementwise kernels apart: the first
+    functor or kernel body named inside the template arguments, past the
+    launch wrappers (e.g. remainder_kernel_cuda, MulFunctor,
+    CUDAFunctor_add, direct_copy_kernel_cuda)."""
+    found = re.findall(r"[A-Za-z]\w*(?:Functor\w*|_kernel_cuda|_kernel_impl)",
+                       name[name.find("<") + 1:])
+    return next((f for f in found
+                 if not f.startswith(("gpu_kernel", "BinaryFunctor"))), "")
 
 
 def main(argv=None) -> dict:

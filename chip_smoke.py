@@ -11,10 +11,13 @@ Phases, each announced on its own line; any failure exits non-zero
   3. kernel phase: each kernel against its plain torch version on random
      residues at the shapes the main path gives it, exact equality
      required; kernel time (CUDA events), plain time and the bound; the
-     NTT kernels (ntt_fwd, ntt_inv) at a key-switch decomposition's J
+     NTT kernels (ntt_fwd, ntt_inv; their ptxas registers and launch
+     occupancy) in every variant of their contract (int32/int64 in and
+     out, Montgomery factors folded in) at a key-switch decomposition's J
      digits over q|specials (the top level; level 29's gapped rows), a
      rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
-     view, DistNTT's [128, 55, 256], and two round trips;
+     view, DistNTT's [128, 55, 256], one row of 2^17, and the round
+     trips;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -197,58 +200,115 @@ def add_launches(total: dict, counts: dict):
         total[k] += counts[k]
 
 
-def ntt_case(label: str, rows: ntt.NTTRows, x: torch.Tensor) -> list:
-    """Both NTT kernels against their plain versions on x int64 [..., L, N]
-    on the card (torch.equal), each timed with CUDA events beside its plain
-    version and its bound: the larger of the int64 bytes in and out over
-    the memory rate and of the 32-bit multiplies over their rate."""
+I32, I64 = torch.int32, torch.int64
+# (input dtype, output dtype, Montgomery conversions folded in)
+NTT_VARIANTS = [(i, o, m) for i in (I32, I64) for o in (I32, I64)
+                for m in (False, True)]
+
+
+def _dt(d) -> str:
+    return "int32" if d == I32 else "int64"
+
+
+def ntt_case(label: str, rows: ntt.NTTRows, make, timed,
+             canonical: bool = True) -> list:
+    """Both NTT kernels against their plain versions on the card
+    (torch.equal) in every variant of the contract: make(dtype) gives the
+    input (int64 values; int32 only when canonical residues), every
+    (input dtype, output dtype, to_mont/from_mont) combination is held
+    equal, and each variant in `timed` is timed with CUDA events beside
+    its plain version and its bound: the larger of the bytes in and out
+    (4 a word int32, 8 int64) over the memory rate and of the 32-bit
+    multiplies (the to_mont product included) over their rate."""
+    x = make(I64)
     *lead, L, N = x.shape
     B = int(np.prod(lead)) if lead else 1
     out = []
     for name, fn, plain in (
             ("ntt_fwd", ntt.ntt_fwd,
-             lambda: ntt.ntt_fwd_plain(x, rows.w(), rows.q)),
+             lambda xi, m, o: ntt.ntt_fwd_plain(
+                 xi, rows.w(), rows.q, rows.r if m else None, o)),
             ("ntt_inv", ntt.ntt_inv,
-             lambda: ntt.ntt_inv_plain(x, rows.wi(), rows.q, rows.ninv))):
-        got = fn(x, rows)
-        want = plain()
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at {label}: max |err| {err}")
-        ms = cuda_ms(lambda: fn(x, rows))
-        plain_ms = cuda_ms(plain, reps=3)
-        by_bytes = ntt.bytes_moved(B, L, N) / HBM_BYTES_PER_S * 1e3
-        by_ops = ntt.int_mults(B, L, N, name == "ntt_inv") \
-            / INT32_MULS_PER_S * 1e3
-        bound_ms = max(by_bytes, by_ops)
-        bound_by = "bytes" if by_bytes >= by_ops else "operations"
-        print(f"{name} {label} [{B}, {L}, {N}]: equal, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({bound_ms / ms:.0%} of bound)", flush=True)
-        out.append(dict(name=name, shape=label, B=B, L=L, N=N,
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by))
+             lambda xi, m, o: ntt.ntt_inv_plain(
+                 xi, rows.wi(), rows.q, rows.ninv, rows.rinv if m else None,
+                 o))):
+        err = 0
+        for ind, outd, mont in NTT_VARIANTS:
+            if ind == I32 and not canonical:
+                continue
+            xi = make(ind)
+            got = fn(xi, rows, mont, outd)
+            want = plain(xi, mont, outd)
+            torch.cuda.synchronize()
+            e = int((got.long() - want.long()).abs().max())
+            err = max(err, e)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} disagrees with its plain version at {label}, "
+                    f"{_dt(ind)} -> {_dt(outd)}, mont={mont}: max |err| {e}")
+        for ind, outd, mont in timed:
+            xi = make(ind)
+            ms = cuda_ms(lambda: fn(xi, rows, mont, outd))
+            plain_ms = cuda_ms(lambda: plain(xi, mont, outd), reps=3)
+            by_bytes = ntt.bytes_moved(B, L, N, xi.element_size(),
+                                       4 if outd == I32 else 8) \
+                / HBM_BYTES_PER_S * 1e3
+            by_ops = ntt.int_mults(B, L, N, name == "ntt_inv", mont) \
+                / INT32_MULS_PER_S * 1e3
+            bound_ms = max(by_bytes, by_ops)
+            bound_by = "bytes" if by_bytes >= by_ops else "operations"
+            dtype = f"{_dt(ind)}->{_dt(outd)}"
+            print(f"{name} {label} [{B}, {L}, {N}] {dtype}"
+                  f"{' mont' if mont else ''}: equal, kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"{bound_by} ({bound_ms / ms:.0%} of bound)", flush=True)
+            out.append(dict(name=name, shape=label, B=B, L=L, N=N,
+                            dtype=dtype, mont=mont, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
     return out
 
 
+def ntt_build_info():
+    """The NTT kernels' registers (nvcc -Xptxas -v, build/ntt.ptxas.log)
+    and their launch: dynamic shared memory, blocks per SM, clusters."""
+    log = kernels.BUILD_DIR / "ntt.ptxas.log"
+    entry = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry is not None:
+            kind = "ntt_cluster" if "ntt_cluster" in entry else "ntt_block"
+            print(f"ptxas {kind} {entry}: {line.split(':', 1)[1].strip()}",
+                  flush=True)
+    for logn in (8, 15, 16, 17):
+        print(f"NTT launch at N=2^{logn}: {ntt.occupancy(logn)}", flush=True)
+
+
 def ntt_cases(params, rng, dev) -> list:
-    """The NTT kernels at the main path's shapes (prod_boot, N=2^16): a
+    """The NTT kernels at the main path's shapes (prod_boot, N=2^16), each
+    in every variant of the contract and timed in the main path's: a
     key-switch decomposition (J digits over q_0..q_level | specials) at the
     top level and, over a non-contiguous row set, at the slice's first
-    level; a rescale's and a ModRaise's two components over 55 rows; one
-    row (a rescale's dropped limb), with int64 inputs outside [0, q) that
-    the kernels reduce on load; the pair rescale's two dropped limbs as a
-    strided view; the DistNTT's size-256 transforms [R, L, 256] of a D = 2
-    mesh; and the round trip ntt_inv(ntt_fwd(x)) = x."""
+    level, int32 in and out with the Montgomery factors folded in (and the
+    top level also int64 in and out, the earlier contract); a rescale's two
+    components over 55 rows, int64; one row (a rescale's dropped limb),
+    with int64 inputs outside [0, q) that the kernels reduce on load; the
+    pair rescale's two dropped limbs as a strided int32 view; the DistNTT's
+    size-256 transforms [R, L, 256] of a D = 2 mesh, int64; one row of
+    2^17; and the fused round trips ntt_inv(ntt_fwd(x))."""
+    ntt_build_info()
     tabs = ops_impl.DeviceTables(params, dev)
     qa = np.asarray(params.all_primes, dtype=np.int64)
     N = params.n
+    fused = [(I32, I32, True)]
 
     def residues(shape, rows):
         x = rng.integers(0, 1 << 62, shape) % qa[rows].reshape(-1, 1)
         return torch.as_tensor(x, device=dev)
+
+    def as_is(x):
+        return lambda d: x.to(d)
 
     cases = []
     for level in (params.top_level, AESFHE128Bitsliced.ROUND_DEPTH * ROUNDS
@@ -256,34 +316,46 @@ def ntt_cases(params, rng, dev) -> list:
         rows = ops_impl._rows(params, level, True)
         J = len(params.ks_tables(level)["groups"])
         gaps = "contiguous" if np.all(np.diff(rows) == 1) else "gapped"
-        cases += ntt_case(f"decompose level {level} J={J} ({gaps} rows)",
-                          tabs.ntt.rows(rows), residues((J, len(rows), N),
-                                                        rows))
+        cases += ntt_case(
+            f"decompose level {level} J={J} ({gaps} rows)",
+            tabs.ntt.rows(rows), as_is(residues((J, len(rows), N), rows)),
+            fused + ([(I64, I64, False)] if level == params.top_level
+                     else []))
     full = np.arange(params.num_q)
     x55 = residues((2, params.num_q, N), full)
     cases += ntt_case("rescale/ModRaise 2 x 55 rows", tabs.ntt.rows(full),
-                      x55)
+                      as_is(x55), [(I64, I64, True)])
     last = [params.top_level]
     spread = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (2, 1, N)),
                              device=dev)
     cases += ntt_case("one row, inputs outside [0, q)", tabs.ntt.rows(last),
-                      spread)
+                      as_is(spread), [(I64, I64, True)], canonical=False)
     pair = [params.top_level - 1, params.top_level]
     cases += ntt_case("pair rescale's limbs (strided view)",
-                      tabs.ntt.rows(pair), x55[:, -2:])
+                      tabs.ntt.rows(pair), lambda d: x55.to(d)[:, -2:],
+                      [(I32, I64, True)])
     A = 1 << ((N.bit_length() - 1) // 2)
     small = ntt.DeviceNTT(*local_tables(params, A, params.num_q),
                           params.q_primes, dev).rows(full)
-    cases += ntt_case(f"DistNTT size {A} (D=2)", small,
-                      residues((A // 2, params.num_q, A), full))
-    for rows, x in ((tabs.ntt.rows(full), x55), (small, residues(
-            (A // 2, params.num_q, A), full))):
-        back = ntt.ntt_inv(ntt.ntt_fwd(x, rows), rows)
-        if not torch.equal(back, x):
+    xd = residues((A // 2, params.num_q, A), full)
+    cases += ntt_case(f"DistNTT size {A} (D=2)", small, as_is(xd),
+                      [(I64, I64, False)])
+    n17 = 2 * N
+    p17 = tuple(rns.find_ntt_primes(30, 2 * n17, 2))
+    t17 = ntt.NTTTables(n17, p17)
+    big = ntt.DeviceNTT(t17.w, t17.wi, t17.ninv, t17.q, dev).rows([1])
+    x17 = torch.as_tensor(rng.integers(0, p17[1], (2, 1, n17)), device=dev)
+    cases += ntt_case("one row of 2^17", big, as_is(x17), fused)
+    for rows, x in ((tabs.ntt.rows(full), x55), (small, xd), (big, x17)):
+        back = ntt.ntt_inv(ntt.ntt_fwd(x.int(), rows, True, I32), rows,
+                           True, I32)
+        back64 = ntt.ntt_inv(ntt.ntt_fwd(x, rows), rows)
+        if not (torch.equal(back, x.int()) and torch.equal(back64, x)):
             raise AssertionError(f"ntt_inv(ntt_fwd(x)) != x at "
                                  f"{tuple(x.shape)}")
-    print("round trips ntt_inv(ntt_fwd(x)) = x at [2, 55, 65536] and "
-          "[128, 55, 256]", flush=True)
+    print("round trips ntt_inv(ntt_fwd(x)) = x (int32 with the Montgomery "
+          "factors folded in, and int64) at [2, 55, 65536], "
+          "[128, 55, 256] and [2, 1, 131072]", flush=True)
     return cases
 
 

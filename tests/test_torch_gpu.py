@@ -44,33 +44,61 @@ def test_ks_inner_kernel_equals_plain(J, dnum, rows, Mk):
     assert torch.equal(got, want)
 
 
-def _ntt_rows_case(rows_obj, shape, q, rng, spread=False):
-    """Kernel vs plain version, forward and inverse, on one input; returns
-    the forward output."""
+def _ntt_rows_case(rows_obj, shape, q, rng, spread=False, view=None):
+    """Kernel vs plain version, forward and inverse, on one input in every
+    variant of the contract (int32/int64 in and out, the Montgomery factors
+    folded in or not; int64 in only for inputs outside [0, q)); view(x)
+    takes a strided view of the input.  Returns the int64 input and its
+    forward transform."""
     x = rng.integers(0, 1 << 62, shape) % q.reshape(-1, 1)
     if spread:                   # outside [0, q): the kernels reduce on load
         x = rng.integers(-(1 << 31), 1 << 31, shape)
     xd = torch.as_tensor(x, device="cuda")
-    f0, i0 = ntt.launches_fwd, ntt.launches_inv
-    got = ntt.ntt_fwd(xd, rows_obj)
-    inv = ntt.ntt_inv(xd, rows_obj)
-    torch.cuda.synchronize()
-    assert (ntt.launches_fwd, ntt.launches_inv) == (f0 + 1, i0 + 1)
-    xc = torch.as_tensor(x)
-    assert torch.equal(got.cpu(), ntt.ntt_fwd_plain(
-        xc, rows_obj.w().cpu(), rows_obj.q.cpu()))
-    assert torch.equal(inv.cpu(), ntt.ntt_inv_plain(
-        xc, rows_obj.wi().cpu(), rows_obj.q.cpu(), rows_obj.ninv.cpu()))
-    return xd, got
+    view = view or (lambda a: a)
+    for ind in (torch.int64,) if spread else (torch.int32, torch.int64):
+        xi = view(xd.to(ind))
+        for outd in (torch.int32, torch.int64):
+            for mont in (False, True):
+                f0, i0 = ntt.launches_fwd, ntt.launches_inv
+                got = ntt.ntt_fwd(xi, rows_obj, mont, outd)
+                inv = ntt.ntt_inv(xi, rows_obj, mont, outd)
+                torch.cuda.synchronize()
+                assert (ntt.launches_fwd, ntt.launches_inv) == (f0 + 1,
+                                                                i0 + 1)
+                assert got.dtype == inv.dtype == outd
+                xc = xi.cpu()
+                assert torch.equal(got.cpu(), ntt.ntt_fwd_plain(
+                    xc, rows_obj.w().cpu(), rows_obj.q.cpu(),
+                    rows_obj.r.cpu() if mont else None, outd))
+                assert torch.equal(inv.cpu(), ntt.ntt_inv_plain(
+                    xc, rows_obj.wi().cpu(), rows_obj.q.cpu(),
+                    rows_obj.ninv.cpu(),
+                    rows_obj.rinv.cpu() if mont else None, outd))
+    xi = view(xd)
+    return xi, ntt.ntt_fwd(xi, rows_obj)
+
+
+def _ring_rows(logn, count=3):
+    """A DeviceNTT of `count` primes of the ring 2^logn on the card, rows
+    in another order than the tables'."""
+    n = 1 << logn
+    primes = tuple(rns.find_ntt_primes(30, 2 * n, count))
+    t = ntt.NTTTables(n, primes)
+    d = ntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cuda")
+    sel = list(range(count))[::-1]
+    return d.rows(sel), np.asarray(primes, dtype=np.int64)[sel]
 
 
 def test_ntt_kernel_equals_plain():
-    """ntt_fwd/ntt_inv kernels torch.equal to their plain versions at
-    prod_boot (N=2^16): a key-switch decomposition's J digits over a
-    non-contiguous q|specials row set, a rescale's two components over 55
-    rows through a strided view, one row, inputs outside [0, q); the
-    DistNTT's size-256 transforms over [R, L, 256]; and the round trip
-    ntt_inv(ntt_fwd(x)) = x."""
+    """ntt_fwd/ntt_inv kernels torch.equal to their plain versions in every
+    variant of the contract: at prod_boot (N=2^16, the cluster path) a
+    key-switch decomposition's J digits over a non-contiguous q|specials
+    row set, a rescale's two components over 55 rows and through a
+    strided view, one row, inputs outside [0, q); a 2^17 row (cluster);
+    the one-block path at 2^13, 2^14, 2^15 and the DistNTT's size-256
+    transforms over [R, L, 256]; the round trips, plain and fused; and a
+    fused forward captured in a CUDA graph, replayed on new input, equal to
+    eager."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from aesfhe_tpu_torch.parallel.dist_ntt import local_tables
@@ -82,21 +110,39 @@ def test_ntt_kernel_equals_plain():
     rows = ops_impl._rows(p, level, True)
     J = len(p.ks_tables(level)["groups"])
     _ntt_rows_case(tabs.ntt.rows(rows), (J, len(rows), p.n), qa[rows], rng)
-    xd, fwd = _ntt_rows_case(tabs.ntt.rows(range(55)), (2, 55, p.n),
-                             qa[:55], rng)
-    assert torch.equal(ntt.ntt_inv(fwd, tabs.ntt.rows(range(55))), xd)
+    r55 = tabs.ntt.rows(range(55))
+    xd, fwd = _ntt_rows_case(r55, (2, 55, p.n), qa[:55], rng)
+    assert torch.equal(ntt.ntt_inv(fwd, r55), xd)
+    x32 = xd.int()
+    back = ntt.ntt_inv(ntt.ntt_fwd(x32, r55, True, torch.int32), r55, True,
+                       torch.int32)
+    assert torch.equal(back, x32)
     _ntt_rows_case(tabs.ntt.rows([54]), (2, 1, p.n), qa[54:55], rng,
                    spread=True)
-    # a strided view: limbs 1..54 of a [2, 55, N] tensor
-    sub = tabs.ntt.rows(range(1, 55))
-    got = ntt.ntt_fwd(xd[:, 1:], sub)
-    assert torch.equal(got.cpu(), ntt.ntt_fwd_plain(
-        xd[:, 1:].cpu(), sub.w().cpu(), sub.q.cpu()))
+    # a strided view: limbs 53, 54 of a [2, 55, N] tensor
+    _ntt_rows_case(tabs.ntt.rows([53, 54]), (2, 55, p.n), qa[:55], rng,
+                   view=lambda a: a[:, -2:])
+    for logn, shape in ((17, (2, 3)), (15, (2, 3)), (14, (3, 3)),
+                        (13, (5, 3))):
+        tr, q = _ring_rows(logn)
+        x, f = _ntt_rows_case(tr, shape + (1 << logn,), q, rng)
+        assert torch.equal(ntt.ntt_inv(f, tr), x)
     A, L = 256, 55
     w, wi, ninv = local_tables(p, A, L)
     small = ntt.DeviceNTT(w, wi, ninv, p.q_primes[:L], "cuda").rows(range(L))
     xd, fwd = _ntt_rows_case(small, (A // 2, L, A), qa[:L], rng)
     assert torch.equal(ntt.ntt_inv(fwd, small), xd)
+    # a graph capture of the fused forward, replayed on a new input
+    src = x32.clone()
+    want = ntt.ntt_fwd(x32.flip(0), r55, True, torch.int32)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ntt.ntt_fwd(src, r55, True, torch.int32)
+    src.copy_(x32.flip(0))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_fused_bootstrap_graph_equals_eager():

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from aesfhe_tpu.core import ntt as jntt
+from aesfhe_tpu.core import rns as jrns
 from aesfhe_tpu.core.params import get_params as jparams
 from aesfhe_tpu_torch.core import ntt as tntt
 from aesfhe_tpu_torch.core import ops_impl, rns
@@ -109,8 +110,15 @@ def test_wrappers_match_reference(profile):
 
 
 # ---------------------------------------------------------------------------
-# The kernels' pass schedule, transcribed from csrc/ntt.cu
+# The kernels' schedule, transcribed from csrc/ntt.cu
 # ---------------------------------------------------------------------------
+
+# csrc/ntt.cu's sizes: kClusterMinLog, kClusterLog, kRunLog, kTileLog
+KERNEL = dict(cluster_min_log=16, cluster_log=3, run_log=8, tile_log=11)
+# small ones: every N from 2^4 through the cluster path (2 blocks, runs of
+# 2^(logN/2)), the one-block path with one row a block
+SMALL = dict(cluster_min_log=4, cluster_log=1, run_log=None, tile_log=3)
+
 
 def _shoup(a, w, wsh, q):
     r = (a * w - ((a * wsh) >> 32) * q) & MASK
@@ -126,75 +134,275 @@ def _sub(a, b, q):
     return torch.where(a >= b, a - b, a + q - b)
 
 
-def _model_pass(x, fwd, strided, logn, logp, tile_log, tw, tsh, rowc):
-    """One launch of ntt_pass<fwd, strided> over rows x [R, N] (canonical):
-    every block of the grid, its loads, its stages, its stores.  tw, tsh
-    [R, N] and rowc [R, 5] are each row's table rows."""
-    groups_log = logn - logp
-    logc = min(groups_log, tile_log - logp)
-    P, C = 1 << logp, 1 << logc
-    E = P << logc
-    col_shift = logn - logp
-    q = rowc[:, 0:1]
-    out = torch.full_like(x, -1)
-    e = torch.arange(E)
-    bf = torch.arange(E // 2)
-    s_lo = 0 if strided else logn - logp
-    for blk in range(1 << (groups_log - logc)):
-        g0 = blk << logc
-        idx = (g0 + (e & (C - 1)) + ((e >> logc) << col_shift) if strided
-               else (g0 << logp) + e)
-        buf = x[:, idx].clone()
-        for j in range(logp):
-            s = s_lo + j if fwd else s_lo + logp - 1 - j
-            logt = logp - 1 - (s - s_lo)
-            tl = 1 << logt
-            if strided:
-                gl, i = bf & (C - 1), bf >> logc
-            else:
-                gl, i = bf >> (logp - 1), bf & ((P >> 1) - 1)
-            ku = ((i >> logt) << (logt + 1)) | (i & (tl - 1))
-            kv = ku + tl
-            idx_u = (g0 + gl + (ku << col_shift) if strided
-                     else ((g0 + gl) << logp) + ku)
-            pu = ku * C + gl if strided else gl * P + ku
-            pv = kv * C + gl if strided else gl * P + kv
-            assert torch.equal(torch.sort(torch.cat([pu, pv])).values, e)
-            ti = (1 << s) + (idx_u >> (logn - s))
-            u, v = buf[:, pu], buf[:, pv]
-            if fwd:
-                wv = _shoup(v, tw[:, ti], tsh[:, ti], q)
-                a, b = _add(u, wv, q), _sub(u, wv, q)
-            elif s == 0:
-                a = _shoup(_add(u, v, q), rowc[:, 1:2], rowc[:, 2:3], q)
-                b = _shoup(_sub(u, v, q), rowc[:, 3:4], rowc[:, 4:5], q)
-            else:
-                a = _add(u, v, q)
-                b = _shoup(_sub(u, v, q), tw[:, ti], tsh[:, ti], q)
-            buf[:, pu], buf[:, pv] = a, b
-        out[:, idx] = buf
-    assert bool((out >= 0).all()), "a pass left elements unwritten"
+def _pad(p):
+    return p + (p >> 5)
+
+
+def _radix(v, r, s0, gb, q, tw, f, fwd):
+    """radix<kR, kFwd>: v [G, 2^r] runs stages s0 .. s0+r-1; tw(ti) ->
+    (w, wsh) [G]; f the fold constants (4 of [G])."""
+    R = 1 << r
+    v = [v[:, j] for j in range(R)]
+    for k in range(r):
+        i = k if fwd else r - 1 - k
+        half = R >> (i + 1)
+        for tg in range(1 << i):
+            j0 = tg * (R >> i)
+            if not fwd and s0 + i == 0:
+                for jj in range(j0, j0 + half):
+                    u, x = v[jj], v[jj + half]
+                    v[jj] = _shoup(_add(u, x, q), f[0], f[1], q)
+                    v[jj + half] = _shoup(_sub(u, x, q), f[2], f[3], q)
+                continue
+            w, wsh = tw((1 << (s0 + i)) + (gb << i) + tg)
+            for jj in range(j0, j0 + half):
+                u, x = v[jj], v[jj + half]
+                if fwd:
+                    t = _shoup(x, w, wsh, q)
+                    v[jj], v[jj + half] = _add(u, t, q), _sub(u, t, q)
+                else:
+                    v[jj] = _add(u, x, q)
+                    v[jj + half] = _shoup(_sub(u, x, q), w, wsh, q)
+    return torch.stack(v, 1)
+
+
+def _groups(nbits, pb0, r):
+    """pass(): each group's base position; lanes on the low position bits
+    when pb0 >= 5, else on the bits from pb0 + r up."""
+    g = torch.arange(1 << (nbits - r))
+    top, nh = pb0 + r, nbits - pb0 - r
+    if pb0 >= 5:
+        return ((g >> pb0) << top) | (g & ((1 << pb0) - 1))
+    return ((g & ((1 << nh) - 1)) << top) | (g >> nh)
+
+
+def _banks_distinct(addr):
+    """Every warp's 32 lanes (consecutive groups) on 32 distinct banks."""
+    b = (addr % 32).reshape(-1, 32)
+    return bool((torch.sort(b, 1).values == torch.arange(32)).all())
+
+
+def _pass(nbits, pb0, r, s0, boff, load, store, q, tw, f, fwd, banks,
+          seen):
+    """One pass: load(pos [G, R]) -> values, radix, store(pos, values);
+    the positions of all groups cover the buffer once; banks: each smem
+    access is checked for conflicts (load/store return the physical
+    addresses they touched, or None for global memory)."""
+    # at the kernel's sizes no pass straddles bit 5 (SmemBuf's stride)
+    assert not banks or pb0 >= 5 or pb0 + r <= 5
+    base = _groups(nbits, pb0, r)
+    pos = base[:, None] + (torch.arange(1 << r) << pb0)[None]
+    assert torch.equal(torch.sort(pos.reshape(-1)).values,
+                       torch.arange(1 << nbits))
+    gb = ((base >> (pb0 + r)) & ((1 << s0) - 1)) + boff
+    v, addr = load(pos)
+    if banks and addr is not None:
+        assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
+    v = _radix(v, r, s0, gb, q(base), lambda ti: tw(base, ti), f(base), fwd)
+    addr = store(pos, v)
+    if banks and addr is not None:
+        assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
+    seen.append((pb0, r, s0))
+
+
+def _smem(buf):
+    def load(pos):
+        a = _pad(pos)
+        return buf[a], a
+
+    def store(pos, v):
+        a = _pad(pos)
+        buf[a] = v
+        return a
+    return load, store
+
+
+def _chunks_top3(bits):
+    """The cluster path's passes over `bits` point bits: 3 at a time from
+    the top, the rest last (kLs = 8: 3+3+2, 9: 3+3+3; runs: 3+3+2)."""
+    out, hi = [], bits
+    while hi > 0:
+        r = min(3, hi)
+        out.append((hi - r, r))
+        hi -= r
     return out
 
 
-def kernel_model(x, k: dict, fwd: bool, one_pass_log=12, tile_log=12):
+def block_chunks(logn):
+    """csrc/ntt.cu block_chunks: [5, logN) in balanced chunks of at most 3
+    bits from the top, then [2, 5) and [0, 2), cut to logN."""
+    out = []
+    if logn > 5:
+        wid = logn - 5
+        cnt = (wid + 2) // 3
+        hi = logn
+        for i in range(cnt):
+            sz = wid // cnt + (1 if i < wid % cnt else 0)
+            out.append((hi - sz, sz))
+            hi -= sz
+    if logn > 2:
+        out.append((2, min(logn, 5) - 2))
+    out.append((0, min(logn, 2)))
+    return out
+
+
+def _model_block(y0, tab, fwd, logn, tile_log, banks, seen):
+    """ntt_block over rows y0 [R, N] (canonical, to_mont applied)."""
+    R, n = y0.shape
+    logt = max(logn, tile_log)
+    per = 1 << (logt - logn)
+    out = torch.full_like(y0, -1)
+    chunks = block_chunks(logn)
+    for blk in range(-(-R // per)):
+        fr0 = blk * per
+        buf = torch.full((_pad((1 << logt) - 1) + 1,), -1, dtype=torch.int64)
+        e = torch.arange(1 << logt)
+        fr = fr0 + (e >> logn)
+        ok = fr < R
+        buf[_pad(e)] = 0
+        buf[_pad(e[ok])] = y0[fr[ok], e[ok] & (n - 1)]
+
+        def trow(base):
+            return torch.clamp(fr0 + (base >> logn), max=R - 1)
+
+        load, store = _smem(buf)
+        for pb0, r in (chunks if fwd else chunks[::-1]):
+            _pass(logt, pb0, r, logn - pb0 - r, 0, load, store,
+                  lambda b: tab["q"][trow(b)],
+                  lambda b, ti: (tab["w"][trow(b), ti],
+                                 tab["wsh"][trow(b), ti]),
+                  lambda b: [c[trow(b)] for c in tab["fold"]], fwd, banks,
+                  seen)
+        out[fr[ok], e[ok] & (n - 1)] = buf[_pad(e[ok])]
+    return out
+
+
+def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
+    """ntt_cluster over rows y0 [R, N]: one cluster of 2^cl_log blocks a
+    row; block `rank` holds the columns from rank*C (column layout k*C +
+    cl) and the runs from h0 = rank*H (run layout hl*2^lc + c)."""
+    R, n = y0.shape
+    K, col_log, ls = 1 << cl_log, lc - cl_log, logn - lc
+    C, nb, hlog = 1 << col_log, logn - lc + lc - cl_log, ls - cl_log
+    words = _pad((1 << nb) - 1) + 1
+    out = torch.full_like(y0, -1)
+    col_chunks, run_chunks = _chunks_top3(ls), _chunks_top3(lc)
+    for row in range(R):
+        cols = [torch.full((words,), -1, dtype=torch.int64) for _ in range(K)]
+        runs = [torch.full((words,), -1, dtype=torch.int64) for _ in range(K)]
+        q = tab["q"][row]
+        f = [c[row] for c in tab["fold"]]
+
+        def small_tw(base, ti):        # the staged first-half twiddles
+            assert int(ti.max()) < 1 << ls
+            return tab["w"][row, ti], tab["wsh"][row, ti]
+
+        def big_tw(base, ti):
+            return tab["w"][row, ti], tab["wsh"][row, ti]
+
+        def col_gidx(pos, rank):       # ColIn / ColOut
+            return ((pos >> col_log) << lc) | ((rank << col_log)
+                                               + (pos & (C - 1)))
+
+        def glob_in(gidx):
+            return lambda pos: (y0[row, gidx(pos)], None)
+
+        def glob_out(gidx):
+            def store(pos, v):
+                out[row, gidx(pos)] = v
+            return store
+
+        def from_cols(rank):           # FromCols<kLs>
+            h0 = rank << hlog
+
+            def load(pos):
+                blk = (pos >> col_log) & (K - 1)
+                a = _pad(((h0 + (pos >> lc)) << col_log) | (pos & (C - 1)))
+                # the kernel's form: block j, one offset
+                if (lc, col_log) == (8, 5):
+                    assert torch.equal(blk, torch.arange(K).expand_as(blk))
+                    assert torch.equal(a, a[:, :1].expand_as(a))
+                v = torch.stack([c[a] for c in cols])
+                return torch.gather(v, 0, blk[None]).squeeze(0), a
+            return load
+
+        def from_runs(rank):           # FromRuns<kLs>
+            def load(pos):
+                k = pos >> col_log
+                a = _pad(((k & ((1 << hlog) - 1)) << lc) | (rank << col_log)
+                         | (pos & (C - 1)))
+                # the kernel's form: one block, a stride
+                if (lc, col_log) == (8, 5):
+                    blk = k >> hlog
+                    assert torch.equal(blk, blk[:, :1].expand_as(blk))
+                    step = torch.arange(a.shape[1]) * _pad(1 << lc)
+                    assert torch.equal(a, a[:, :1] + step)
+                v = torch.stack([b[a] for b in runs])
+                return torch.gather(v, 0, (k >> hlog)[None]).squeeze(0), a
+            return load
+
+        def run_phase(rank, first_load):
+            h0 = rank << hlog
+            load, store = _smem(runs[rank])
+            order = run_chunks if fwd else run_chunks[::-1]
+            for i, (cb0, r) in enumerate(order):
+                s0 = ls + lc - cb0 - r
+                last = i == len(order) - 1
+                _pass(nb, cb0, r, s0, h0 << (s0 - ls),
+                      first_load if i == 0 else load,
+                      glob_out(lambda p: p + (h0 << lc))
+                      if fwd and last else store,
+                      lambda b: q, big_tw, lambda b: f, fwd, banks, seen)
+
+        def col_phase(rank, first_load):
+            load, store = _smem(cols[rank])
+            order = col_chunks if fwd else col_chunks[::-1]
+            for i, (kb0, r) in enumerate(order):
+                last = i == len(order) - 1
+                _pass(nb, col_log + kb0, r, ls - kb0 - r, 0,
+                      first_load if i == 0 else load,
+                      glob_out(lambda p: col_gidx(p, rank))
+                      if not fwd and last else store,
+                      lambda b: q, small_tw, lambda b: f, fwd, banks, seen)
+
+        for rank in range(K):          # up to the first cluster barrier
+            if fwd:
+                col_phase(rank, glob_in(lambda p: col_gidx(p, rank)))
+            else:
+                h0 = rank << hlog
+                run_phase(rank, glob_in(lambda p: p + (h0 << lc)))
+        for rank in range(K):          # after it
+            if fwd:
+                run_phase(rank, from_cols(rank))
+            else:
+                col_phase(rank, from_runs(rank))
+    return out
+
+
+def kernel_model(x, k: dict, fwd: bool, mont: bool = False, sizes=KERNEL,
+                 banks: bool = False, seen: list | None = None):
     """ntt_fwd_launch / ntt_inv_launch on x int64 [R, N] (any int64, one
-    table row per data row) with the host tables k of ntt.kernel_tables."""
+    table row per data row) with the host tables k of ntt.kernel_tables:
+    the load's floor mod and to_mont factor, then the cluster path (N >=
+    2^cluster_min_log) or the one-block path.  banks: assert that every
+    shared-memory access of a warp hits 32 distinct banks."""
     logn = x.shape[-1].bit_length() - 1
     pick = "w" if fwd else "wi"
-    tw = torch.as_tensor(k[pick].astype(np.int64))
-    tsh = torch.as_tensor(k[pick + "_sh"].astype(np.int64))
-    rowc = torch.as_tensor(k["rowc"].astype(np.int64))
-    y = x % rowc[:, 0:1]                      # load_residue: floor mod
-    if logn <= one_pass_log:
-        plan = [(False, logn)]
-    else:
-        lc = logn // 2
-        plan = ([(True, logn - lc), (False, lc)] if fwd
-                else [(False, lc), (True, logn - lc)])
-    for strided, logp in plan:
-        y = _model_pass(y, fwd, strided, logn, logp, tile_log, tw, tsh, rowc)
-    return y
+    rc = torch.as_tensor(k["rowc"].astype(np.int64))
+    tab = dict(w=torch.as_tensor(k[pick].astype(np.int64)),
+               wsh=torch.as_tensor(k[pick + "_sh"].astype(np.int64)),
+               q=rc[:, 0], fold=[rc[:, c] for c in
+                                 (range(7, 11) if mont else range(1, 5))])
+    q = rc[:, 0:1]
+    y = x % q                                   # load_residue: floor mod
+    if fwd and mont:
+        y = _shoup(y, rc[:, 5:6], rc[:, 6:7], q)
+    seen = [] if seen is None else seen
+    if logn >= sizes["cluster_min_log"]:
+        lc = sizes["run_log"] or logn // 2
+        return _model_cluster(y, tab, fwd, logn, sizes["cluster_log"], lc,
+                              banks, seen)
+    return _model_block(y, tab, fwd, logn, sizes["tile_log"], banks, seen)
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,49 +421,157 @@ def _limbs(logn: int):
     return primes, k, x, want
 
 
-@pytest.mark.parametrize("sizes", [(12, 12), (3, 7)],
+@pytest.mark.parametrize("sizes", [KERNEL, SMALL],
                          ids=["kernel-sizes", "split-every-n"])
 def test_pass_schedule_matches_reference(sizes):
-    """The kernels' pass schedule equals the reference's host NTT (forward)
-    and inverts it (inverse, N^-1 folded into the last stage) for
-    N = 2^4 ... 2^13 on two limbs; (one-pass limit, tile) = the kernels'
-    (2^12, 4096: N = 2^13 takes two passes of two blocks a row) and small
-    ones (2^3, 128: every N two passes, from N = 2^8 several blocks a
-    row).  The folded constants in the tables' rowc: q, N^-1 and
-    wi[1] * N^-1, each with its Shoup companion floor(c * 2^32 / q)."""
-    one_pass, tile = sizes
+    """The kernels' schedule equals the reference's host NTT (forward) and
+    inverts it (inverse, N^-1 folded into the last stage) for N = 2^4 ...
+    2^13 on two limbs, with the kernels' sizes (the one-block path, up to
+    2^7 rows a block, its shared-memory accesses free of bank conflicts)
+    and with small ones (every N through the cluster path: 2 blocks, the
+    column passes, the exchange through the other block's shared memory,
+    the run passes).  The folded factors: with to_mont the forward equals
+    the reference's transform of x * 2^32 mod q, and the inverse with
+    from_mont returns x * 2^-32 mod q.  The constants in the tables' rowc:
+    q, N^-1, wi[1]*N^-1, R, N^-1*R^-1, wi[1]*N^-1*R^-1, each with its
+    Shoup companion floor(c * 2^32 / q)."""
     primes, k, _, _ = _limbs(6)
     for i, q in enumerate(primes):
-        q_, ninv, ninv_sh, wi1n, wi1n_sh = (int(v) for v in k["rowc"][i])
-        assert q_ == q and ninv * 64 % q == 1
-        assert wi1n == int(k["wi"][i, 1]) * ninv % q
-        assert ninv_sh == (ninv << 32) // q and wi1n_sh == (wi1n << 32) // q
+        c = [int(v) for v in k["rowc"][i]]
+        assert len(c) == 11 and c[0] == q and c[1] * 64 % q == 1
+        assert c[3] == int(k["wi"][i, 1]) * c[1] % q
+        assert c[5] == (1 << 32) % q
+        assert c[7] == c[1] * pow(1 << 32, -1, q) % q
+        assert c[9] == c[3] * pow(1 << 32, -1, q) % q
+        assert all(c[j + 1] == (c[j] << 32) // q for j in (1, 3, 5, 7, 9))
     for logn in range(4, 14):
         primes, k, x, want = _limbs(logn)
         q = np.asarray(primes, dtype=np.int64).reshape(-1, 1)
-        got = kernel_model(torch.as_tensor(x), k, True, one_pass, tile)
+        rm = np.asarray([(1 << 32) % int(v) for v in q.ravel()]).reshape(-1, 1)
+        banks = sizes is KERNEL
+        got = kernel_model(torch.as_tensor(x), k, True, sizes=sizes,
+                           banks=banks)
         assert np.array_equal(got.numpy(), want), logn
-        back = kernel_model(torch.as_tensor(want), k, False, one_pass, tile)
+        back = kernel_model(torch.as_tensor(want), k, False, sizes=sizes,
+                            banks=banks)
         assert np.array_equal(back.numpy(), x % q), logn
+        # the folded factors: NTT(x R) with to_mont, x R^-1 with from_mont
+        got = kernel_model(torch.as_tensor(x % q * rm % q), k, True,
+                           sizes=sizes)
+        assert np.array_equal(kernel_model(torch.as_tensor(x), k, True, True,
+                                           sizes=sizes).numpy(),
+                              got.numpy()), logn
+        back = kernel_model(got, k, False, True, sizes=sizes)
+        assert np.array_equal(back.numpy(), x % q), logn
+
+
+@pytest.mark.parametrize("logn", [16, 17])
+def test_cluster_schedule_at_kernel_sizes(logn):
+    """The cluster path at the kernels' own sizes (8 blocks, runs of 256,
+    32 columns a block; 2^16: column passes of 3+3+2 k bits, 2^17: 3+3+3)
+    on one row: every pass's groups cover its buffer, each shared-memory
+    access of a warp (local and through the exchange) hits 32 distinct
+    banks, the first half's twiddle indices stay below 2^(logN-8), and the
+    result equals the plain version's, both ways, with the folded
+    factors."""
+    n = 1 << logn
+    primes = tuple(rns.find_ntt_primes(30, 2 * n, 1))
+    t = tntt.NTTTables(n, primes)
+    k = tntt.kernel_tables(t.w, t.wi, t.ninv, t.q)
+    rng = np.random.default_rng(logn)
+    x = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (1, n)))
+    tabs = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows([0])
+    for fwd, mont in ((True, False), (True, True), (False, True)):
+        seen = []
+        got = kernel_model(x, k, fwd, mont, banks=True, seen=seen)
+        want = (tntt.ntt_fwd(x, tabs, to_mont=mont) if fwd
+                else tntt.ntt_inv(x, tabs, from_mont=mont))
+        assert torch.equal(got, want), (fwd, mont)
+        # per block: 3 column passes, 3 run passes
+        assert len(seen) == 2 * 3 * 8
+        kls = logn - 8
+        cols = [(5 + kls - 3, 3, 0), (5 + kls - 6, 3, 3), (5, kls - 6, 6)]
+        runs = [(5, 3, kls), (2, 3, kls + 3), (0, 2, kls + 6)]
+        assert seen[:3] == (cols if fwd else runs[::-1])        # rank 0
+        assert seen[24:27] == (runs if fwd else cols[::-1])
 
 
 # ---------------------------------------------------------------------------
 # The wrappers' checks
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("profile", ["tiny", "test"])
+def test_fused_forms_match_reference(profile):
+    """The wrappers' fused forms on CPU tensors against the reference, over
+    a non-contiguous Q.P row set with a batch axis: int32 and int64 in,
+    int32 and int64 out; ntt_fwd(x, to_mont=True) equals the reference's
+    ntt_fwd of its rns.to_mont(x), and ntt_inv(y, from_mont=True) the
+    reference's rns.from_mont of its ntt_inv(y); int64 inputs outside
+    [0, q) give the transform of x mod q; the round trip returns x."""
+    p, jp = tparams(profile), jparams(profile)
+    t = jp.tables
+    level = 2
+    rows = ops_impl._rows(p, level, True)
+    tr = ops_impl.DeviceTables(p, "cpu").rows(rows)
+    q = np.asarray(p.all_primes, dtype=np.int64)[rows]
+    rng = np.random.default_rng(8)
+    x = _inputs(rng, (2, len(rows), p.n), q, False)
+    xs = _inputs(rng, (2, len(rows), p.n), q, True)
+    qj = jnp.asarray(t.q[rows]).reshape(-1, 1)
+    qinv = jnp.asarray(jp.qinv_arr[rows]).reshape(-1, 1)
+    r2 = jnp.asarray(jp.r2_arr[rows]).reshape(-1, 1)
+    xm = np.asarray(jrns.to_mont(jnp.asarray(x.astype(np.uint32)), qj,
+                                 qinv, r2))
+    want_f = _jref(xm, rows, jp).astype(np.int64)
+    want_i = np.asarray(jrns.from_mont(
+        jnp.asarray(_jref(x.astype(np.uint32), rows, jp, inverse=True)),
+        qj, qinv)).astype(np.int64)
+    for in_dt in (torch.int32, torch.int64):
+        xt = torch.as_tensor(x).to(in_dt)
+        for out_dt in (torch.int32, torch.int64):
+            got = ops_impl.ntt_rows(xt, tr, to_mont=True, out_dtype=out_dt)
+            assert got.dtype == out_dt
+            assert np.array_equal(got.long().numpy(), want_f)
+            inv = ops_impl.intt_rows(xt, tr, from_mont=True, out_dtype=out_dt)
+            assert inv.dtype == out_dt
+            assert np.array_equal(inv.long().numpy(), want_i)
+            plain = tntt.ntt_fwd(xt, tr.ntt, out_dtype=out_dt)
+            assert np.array_equal(plain.long().numpy(),
+                                  _jref(x.astype(np.uint32), rows, jp))
+    # int64 outside [0, q): the transforms of x mod q, fused alike
+    xr = xs % q.reshape(-1, 1)
+    got = ops_impl.ntt_rows(torch.as_tensor(xs), tr, to_mont=True,
+                            out_dtype=torch.int32)
+    assert torch.equal(got, ops_impl.ntt_rows(
+        torch.as_tensor(xr).int(), tr, to_mont=True, out_dtype=torch.int32))
+    got = ops_impl.intt_rows(torch.as_tensor(xs), tr, from_mont=True)
+    assert torch.equal(got, ops_impl.intt_rows(torch.as_tensor(xr), tr,
+                                               from_mont=True))
+    back = ops_impl.intt_rows(ops_impl.ntt_rows(
+        torch.as_tensor(x).int(), tr, to_mont=True, out_dtype=torch.int32),
+        tr, from_mont=True, out_dtype=torch.int32)
+    assert np.array_equal(back.numpy(), x)
+
+
 def test_wrapper_checks():
-    """A bad dtype, a non-power-of-two N, a shape the tables do not have
-    and an unknown device raise; an empty batch returns empty.  No module
-    of the port but core/ntt.py names ntt_fwd_plain or ntt_inv_plain:
-    every NTT goes through the wrappers, so on the card through the
-    kernels."""
+    """A dtype other than int32 or int64 (float32, int16; also as
+    out_dtype), a non-power-of-two N, a shape the tables do not have and
+    an unknown device raise; int32 is taken; an empty batch returns empty.
+    No module of the port but core/ntt.py names ntt_fwd_plain or
+    ntt_inv_plain: every NTT goes through the wrappers, so on the card
+    through the kernels."""
     p = tparams("tiny")
     t = p.tables
     rows = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows(range(3))
     x = torch.zeros((3, p.n), dtype=torch.int64)
     for fn in (tntt.ntt_fwd, tntt.ntt_inv):
-        with pytest.raises(TypeError, match="int64"):
-            fn(x.int(), rows)
+        for bad in (torch.float32, torch.int16):
+            with pytest.raises(TypeError, match="int32 or int64"):
+                fn(x.to(bad), rows)
+            with pytest.raises(TypeError, match="out_dtype"):
+                fn(x, rows, False, bad)
+        assert torch.equal(fn(x.int(), rows), fn(x, rows))
+        assert fn(x, rows, False, torch.int32).dtype == torch.int32
         with pytest.raises(ValueError, match="power of two"):
             fn(torch.zeros((3, 12), dtype=torch.int64), rows)
         with pytest.raises(ValueError, match="tables"):
@@ -271,3 +587,13 @@ def test_wrapper_checks():
                      if "ntt_fwd_plain" in f.read_text()
                      or "ntt_inv_plain" in f.read_text())
     assert callers == []
+
+
+def test_ntt_variants_apply():
+    """Every variant of `python3 -m aesfhe_tpu_torch.ntt_variants` (the
+    designs tried and dropped, timed beside the kernels on the card)
+    still applies to csrc/ntt.cu: each of its edits matches exactly once."""
+    from aesfhe_tpu_torch import kernels, ntt_variants
+    base = kernels.SOURCES["ntt"].read_text()
+    for name in ntt_variants.VARIANTS:
+        assert ntt_variants.variant_source(name) != base, name
