@@ -37,8 +37,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import kernels
 from .core import ks_inner as ks_inner_mod
-from .core import ntt as ntt_mod
 from .core import ops_impl
 from .core.ciphertext import Ciphertext, Plaintext
 from .core.keys import GaloisKeySet, gen_rotation_keys
@@ -760,20 +760,15 @@ class FusedBootstrap:
 
     def _tally(self) -> dict:
         t = dict(self.engine.counters)
-        t["ks_inner_launches"] = ks_inner_mod.launches
-        t["ntt_fwd_launches"] = ntt_mod.launches_fwd
-        t["ntt_inv_launches"] = ntt_mod.launches_inv
+        t.update({f"{k}_launches": v
+                  for k, v in kernels.launch_counts().items()})
         t["diag_hits"] = self.bk.diag_hits
         return t
 
     def _add(self, deltas: dict):
         for k, v in deltas.items():
-            if k == "ks_inner_launches":
-                ks_inner_mod.launches += v
-            elif k == "ntt_fwd_launches":
-                ntt_mod.launches_fwd += v
-            elif k == "ntt_inv_launches":
-                ntt_mod.launches_inv += v
+            if k.endswith("_launches"):
+                kernels.add_launches({k[:-len("_launches")]: v})
             elif k == "diag_hits":
                 self.bk.diag_hits += v
             else:

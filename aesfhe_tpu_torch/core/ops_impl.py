@@ -7,15 +7,22 @@ in the NTT evaluation domain; every residue is < q <= 2^30, so int32 holds
 it non-negative and `.long()` widens it.  Each function widens its inputs,
 computes in int64 (see core/rns.py) and returns int32.  `tabs` is the
 DeviceTables of one (params, device).  The digit inner product of every
-key-switch goes through `ks_inner.ks_inner` (the CUDA kernel on the card).
+key-switch goes through `ks_inner.ks_inner`, its basis conversions and the
+epilogue of the mod-down and of the rescales through `ks_legs` (the CUDA
+kernels on the card).  The functions the reference names with
+`jax.named_scope("ckks.…")` run inside `torch.profiler.record_function`
+ranges of the same names (`scopes.install`, at the end of this module), so
+a profile splits device time by primitive.
 """
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
 
 from . import ks_inner as ks_inner_mod
-from . import ntt, rns
+from . import ks_legs, ntt, rns, scopes
 from .params import CKKSParams
 
 
@@ -69,10 +76,14 @@ class DeviceTables:
         """A host table `make()` as a tensor on the device, uploaded once per
         key: an upload from pageable host memory waits for the device's
         queue, so per-call uploads would stall the host on every op."""
+        return self.table(key, lambda: torch.as_tensor(
+            np.asarray(make()), dtype=dtype, device=self.device))
+
+    def table(self, key, make):
+        """`make()` (tables already on the device), made once per key."""
         t = self._consts.get(key)
         if t is None:
-            t = torch.as_tensor(np.asarray(make()), dtype=dtype,
-                                device=self.device)
+            t = make()
             self._consts[key] = t
         return t
 
@@ -281,11 +292,11 @@ def ct_rescale(params, tabs, a):
                         lambda: [ql % q for q in rest]).reshape(1, -1, 1)
     lifted = torch.where(last_plain >= (ql + 1) // 2,
                          rns.sub_mod(red, ql_mod, q_rest), red)
-    lifted_eval = ntt_rows(lifted, tr_rest, to_mont=True)
-    qlinv = tabs.const(("qlinv", level),
-                       lambda: [pow(ql, -1, q) for q in rest]).reshape(1, -1, 1)
-    diff = rns.sub_mod(a[:, :level, :].long(), lifted_eval, q_rest)
-    return rns.shoup_mul(diff, qlinv, q_rest).int()
+    lifted_eval = ntt_rows(lifted, tr_rest, to_mont=True,
+                           out_dtype=torch.int32)
+    qlinv = tabs.const(("rescale_w", level), lambda: ks_legs.scale_table(
+        rest, [pow(ql, -1, q) for q in rest]), dtype=torch.int32)
+    return ks_legs.sub_scale(a[:, :level, :], lifted_eval, qlinv)
 
 
 def ct_rescale_pair(params, tabs, a):
@@ -318,15 +329,15 @@ def ct_rescale_pair(params, tabs, a):
 
     qa_mod = const("pair_qa", lambda: [qa % q for q in rest])
     qab_mod = const("pair_qab", lambda: [qa * qb % q for q in rest])
-    qab_inv = const("pair_qab_inv",
-                    lambda: [pow(qa * qb % q, -1, q) for q in rest])
+    qab_inv = tabs.const(("pair_scale", level), lambda: ks_legs.scale_table(
+        rest, [pow(qa * qb % q, -1, q) for q in rest]), dtype=torch.int32)
     lift = rns.add_mod(rns.barrett_reduce(v_a, q_rest),
                        rns.shoup_mul(rns.barrett_reduce(t, q_rest), qa_mod,
                                      q_rest), q_rest)
     lifted = torch.where(high, rns.sub_mod(lift, qab_mod, q_rest), lift)
-    diff = rns.sub_mod(a[:, :level - 1, :].long(),
-                       ntt_rows(lifted, tr_rest, to_mont=True), q_rest)
-    return rns.shoup_mul(diff, qab_inv, q_rest).int()
+    return ks_legs.sub_scale(a[:, :level - 1, :],
+                             ntt_rows(lifted, tr_rest, to_mont=True,
+                                      out_dtype=torch.int32), qab_inv)
 
 
 def ct_drop_to(params: CKKSParams, a, target_level: int):
@@ -381,23 +392,12 @@ def ks_decompose(params, tabs, c_eval, j0: int = 0, j1: int | None = None):
     if not live:
         return padding()
     tr_q = _q_tr(params, tabs, level)
-    c_plain = intt_rows(c_eval, tr_q, from_mont=True)
-    q_basis = tr_b.q.reshape(1, -1, 1)
-    digits = []
-    for j in live:
-        g = groups[j]
-        limbs = g["limbs"]
-        qg = tabs.const(("ksd_q", level, j),
-                        lambda: [params.q_primes[i] for i in limbs])
-        inv_w = tabs.const(("ksd_inv", level, j), lambda: g["inv_w"])
-        conv_w = tabs.const(("ksd_conv", level, j), lambda: g["conv_w"])
-        y = rns.shoup_mul(c_plain[limbs[0]:limbs[-1] + 1],
-                          inv_w.reshape(-1, 1), qg.reshape(-1, 1))  # [a, N]
-        # ext[m] = sum_a y_a * (Qt/q_a mod basis_m) mod basis_m
-        terms = (y[:, None, :] * conv_w[:, :, None]) % q_basis
-        digits.append(terms.sum(dim=0) % q_basis[0])
-    dstack = torch.stack(digits)                                   # [d, M, N]
-    out = ntt_rows(dstack, tr_b, to_mont=True, out_dtype=torch.int32)
+    c_plain = intt_rows(c_eval, tr_q, from_mont=True, out_dtype=torch.int32)
+    tab = tabs.table(("ks_modup", level), lambda: ks_legs.ModupTables(
+        params, level, tabs.device))
+    # ext[j, m] = sum_{a in digit j} y_a * (Qt_j/q_a mod basis_m) mod basis_m
+    ext = ks_legs.ks_modup(c_plain, tab, live.start, live.stop)
+    out = ntt_rows(ext, tr_b, to_mont=True, out_dtype=torch.int32)
     return torch.cat([out, padding()]) if npad else out
 
 
@@ -427,7 +427,7 @@ def ks_inner_and_moddown(params, tabs, d_eval, key_b, key_a, key_cap=None):
     tr_b = tabs.rows(_rows(params, level, True))
     acc = _ks_inner(d_eval, key_b, key_a, _key_rows(params, level, key_cap),
                     tr_b)
-    ba = _mod_down_specials(params, tabs, acc, level).int()
+    ba = _mod_down_specials(params, tabs, acc, level)
     return ba[0], ba[1]
 
 
@@ -452,76 +452,29 @@ def keyswitch(params, tabs, c_eval, key_b, key_a, key_cap=None):
     return ks_inner_and_moddown(params, tabs, d_eval, key_b, key_a, key_cap)
 
 
-def _vhat_frac(yf, inv_p, K: int):
-    """sum_i yf_i * inv_p_i in float32 over the K special rows of yf
-    [..., K, N], in XLA:CPU's order for the reference's jnp.sum: K = 8 as
-    one 8-lane vector, each product rounded, then halves added
-    (t_i + t_{i+4}, then + t_{i+2}, then + t_{i+1}); any other K as a
-    fused multiply-add chain acc = fma(yf_i, inv_p_i, acc) from 0, each
-    step rounded once (the float64 product of two float32 values is exact;
-    the float64 sum rounds only for a product far below the sum, where a
-    double rounding needs ~29 particular bits).  Orders differ only where
-    the sum falls within a float32 ulp of a half-integer: v_hat then
-    differs by one, and the result by one unit in that coefficient
-    (ROADMAP queue 3)."""
-    if K == 8:
-        t = [yf[..., i:i + 1, :] * inv_p[i] for i in range(K)]
-        while len(t) > 1:
-            h = len(t) // 2
-            t = [t[i] + t[i + h] for i in range(h)]
-        return t[0]
-    inv = inv_p.double()
-    acc = torch.zeros_like(yf[..., 0:1, :], dtype=torch.float64)
-    for i in range(K):
-        acc = (yf[..., i:i + 1, :].double() * inv[i] + acc).float().double()
-    return acc.float()
-
-
 def _mod_down_specials(params, tabs, x, level: int):
     """x int32 or int64 [..., l+1+K, N] (canonical residues) over (active q
-    | specials) -> int64 [..., l+1, N] ~ x / P: one iNTT of the K special
-    rows, the approximate CRT conversion P -> active q, the centered
-    overshoot correction, one NTT of the q rows.
+    | specials) -> int32 [..., l+1, N] ~ x / P: one iNTT of the K special
+    rows, the approximate CRT conversion P -> active q with the centered
+    overshoot correction (`ks_legs.ks_moddown`), one NTT of the q rows,
+    then (x_q - conv) * P^-1 (`ks_legs.sub_scale`).
 
     The raw conversion sum_i y_i (P/p_i) equals [x]_P + v P for an integer
     v in [0, K); v_hat = round(sum_i y_i / p_i) in float32 removes it, the
     sum in the order the reference's compiled reduction takes
-    (_vhat_frac), so v_hat is the same integer."""
+    (`ks_legs.vhat_frac`), so v_hat is the same integer."""
     K = params.num_special
     lp1 = level + 1
-    mdt = params.md_tables(level)
-    nl = x.dim() - 2
-
-    def shp(name, rows):
-        return tabs.const(("md", level, name),
-                          lambda: mdt[name]).reshape((1,) * nl + (rows, 1))
-
     tr_s = tabs.rows(np.arange(params.num_q, params.num_q + K))
     tr_q = _q_tr(params, tabs, level)
-    qv = tr_q.q.reshape((1,) * nl + (lp1, 1))
-    ps = tr_s.q.reshape((1,) * nl + (K, 1))
-
-    d_plain = intt_rows(x[..., lp1:, :], tr_s, from_mont=True)
-    y = rns.shoup_mul(d_plain, shp("inv_w", K), ps)
-    conv_w = tabs.const(("md", level, "conv_w"), lambda: mdt["conv_w"])
-    conv = None
-    for i in range(K):
-        t = (y[..., i:i + 1, :] * conv_w[i].reshape((1,) * nl + (lp1, 1))) % qv
-        conv = t if conv is None else conv + t
-    conv %= qv
-
-    inv_p = tabs.const(
-        ("md_inv_p",),
-        lambda: (1.0 / np.asarray(params.special_primes, dtype=np.float64)
-                 ).astype(np.float32), dtype=torch.float32)
-    vhat = torch.round(_vhat_frac(y.to(torch.float32), inv_p, K)
-                       ).to(torch.int64)
-    corr = rns.shoup_mul(vhat, shp("pmod_w", lp1), qv)
-    conv = rns.sub_mod(conv, corr, qv)
-
-    diff = rns.sub_mod(x[..., :lp1, :].long(),
-                       ntt_rows(conv, tr_q, to_mont=True), qv)
-    return rns.shoup_mul(diff, shp("pinv_w", lp1), qv)
+    tab = tabs.table(("ks_moddown", level), lambda: ks_legs.ModdownTables(
+        params, level, tabs.device))
+    d_plain = intt_rows(x[..., lp1:, :], tr_s, from_mont=True,
+                        out_dtype=torch.int32)
+    conv = ks_legs.ks_moddown(d_plain, tab)
+    conv_eval = ntt_rows(conv, tr_q, to_mont=True, out_dtype=torch.int32)
+    return ks_legs.sub_scale(x[..., :lp1, :].to(torch.int32), conv_eval,
+                             tab.pinv)
 
 
 def _mod_down_specials_exact(params, tabs, x, level: int):
@@ -555,3 +508,6 @@ def _mod_down_specials_exact(params, tabs, x, level: int):
                              pj)
             spec[sj] = rns.shoup_mul(dj, pow(p, -1, pj), pj)
     return cur
+
+
+scopes.install(sys.modules[__name__])

@@ -6,11 +6,16 @@ stale build is never loaded, under `build/` beside this file (listed in
 .gitignore).  `build()` starts one `nvcc` per source, all at once, and
 waits for them; `load()` builds on first use.  A failed build raises.
 Nothing here runs at import: the CPU tests import every module.
+
+Each wrapper counts its kernel's launches in a module-level integer;
+`COUNTERS` names them, and `launch_counts`/`zero_launches`/`add_launches`
+read, zero and add to all of them at once.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -20,7 +25,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "build"
 SOURCES = {"ks_inner": _PKG / "csrc" / "ks_inner.cu",
-           "ntt": _PKG / "csrc" / "ntt.cu"}
+           "ntt": _PKG / "csrc" / "ntt.cu",
+           "ks_legs": _PKG / "csrc" / "ks_legs.cu"}
+# kernel name -> (wrapper module under core/, its launch counter)
+COUNTERS = {"ks_inner": ("ks_inner", "launches"),
+            "ntt_fwd": ("ntt", "launches_fwd"),
+            "ntt_inv": ("ntt", "launches_inv"),
+            "ks_modup": ("ks_legs", "launches_modup"),
+            "ks_moddown": ("ks_legs", "launches_moddown"),
+            "sub_scale": ("ks_legs", "launches_sub_scale")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -81,3 +94,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def _counter(name: str):
+    mod, attr = COUNTERS[name]
+    return importlib.import_module(f"{__package__}.core.{mod}"), attr
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches so far, by kernel name."""
+    return {n: getattr(*_counter(n)) for n in COUNTERS}
+
+
+def zero_launches() -> None:
+    for n in COUNTERS:
+        setattr(*_counter(n), 0)
+
+
+def add_launches(counts: dict) -> None:
+    """Add counts {kernel name: launches} (e.g. a graph replay's)."""
+    for n, v in counts.items():
+        mod, attr = _counter(n)
+        setattr(mod, attr, getattr(mod, attr) + v)

@@ -114,7 +114,8 @@ class DistKeySwitch:
     # -- the collective pieces ----------------------------------------------
     def _reduce(self, d_local, key, level: int):
         """Partial inner product of this rank's digits, one int64
-        all-reduce, mod q, then the mod-down: int64 [2, l+1, N]."""
+        all-reduce, mod q (canonical, so narrowed to int32), then the
+        mod-down: int32 [2, l+1, N]."""
         kb, ka = self.key_shards(key)
         tr_b = self.tabs.rows(ops_impl._rows(self.params, level, True))
         part = ops_impl._ks_inner(
@@ -123,7 +124,8 @@ class DistKeySwitch:
         acc = self.comm.all_reduce(part.long())
         acc %= tr_b.q.reshape(1, -1, 1)
         self.levels[level] += 1
-        return ops_impl._mod_down_specials(self.params, self.tabs, acc, level)
+        return ops_impl._mod_down_specials(self.params, self.tabs,
+                                           acc.to(torch.int32), level)
 
     def decompose(self, c_eval):
         """This rank's digits [pad/D, M, N] of c's decomposition."""
@@ -133,7 +135,7 @@ class DistKeySwitch:
     def keyswitch(self, c_eval, key):
         """(b, a) int32 [l+1, N] each, as ops_impl.keyswitch."""
         level = c_eval.shape[0] - 1
-        ba = self._reduce(self.decompose(c_eval), key, level).int()
+        ba = self._reduce(self.decompose(c_eval), key, level)
         return ba[0], ba[1]
 
     def _q(self, data):
@@ -159,6 +161,6 @@ class DistKeySwitch:
         p0 = data[0][..., perm]
         level = data.shape[1] - 1
         ba = self._reduce(d_local[..., perm].contiguous(), key, level)
-        return torch.stack([rns.add_mod(p0.long(), ba[0],
-                                        self._q(data)).int(), ba[1].int()])
+        return torch.stack([rns.add_mod(p0.long(), ba[0].long(),
+                                        self._q(data)).int(), ba[1]])
 

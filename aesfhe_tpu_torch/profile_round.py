@@ -28,9 +28,12 @@ ARK(rk0) and round 1 once untraced and once under torch.profiler.
 
 Prints one JSON object: the traced wall time, the summed device kernel
 time and its share of the wall (the rest is the card idling on the host),
-the key-switch kernel's and the NTT kernels' seconds, launches and shares,
-and the kernels that take the most device time (with `--graph` one such
-record each for "eager" and "graph").
+each of the port's kernels' device seconds, launches and shares, the
+device time by the CKKS primitives' named ranges (`core/scopes.py`: the
+reference's jax.named_scope names; "self" without and "total" with the
+ranges nested inside, and the time outside every range), and the kernels
+that take the most device time (with `--graph` one such record each for
+"eager" and "graph"; a replay runs outside every range).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -43,10 +46,11 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import run_full_aes, zeta_trace
-from .core import ks_inner, ntt
+from . import kernels, run_full_aes, zeta_trace
+from .core import ops_impl, scopes
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
 from .pipeline import AESFHE128, AESFHE128Bitsliced
@@ -125,41 +129,92 @@ def _trace(work) -> dict:
     ev1.record()
     torch.cuda.synchronize()
     untraced = ev0.elapsed_time(ev1) / 1e3
-    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
+    kernels.zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = ks_inner.launches
-    ntt_launches = dict(fwd=ntt.launches_fwd, inv=ntt.launches_inv)
+    launches = kernels.launch_counts()
 
-    kernels = {}
+    by_name = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type is not None and \
-                "cuda" in str(evt.device_type).lower():
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
-    device_s = sum(kernels.values()) / 1e6
-    ks_s = sum(v for k, v in kernels.items() if "ks_inner" in k) / 1e6
-    # csrc/ntt.cu's kernels, ntt_cluster<forward?, ...> and
-    # ntt_block<forward?, ...>, by the demangled or the mangled name
-    ntt_s = {d: sum(v for k, v in kernels.items()
-                    if re.search(f"ntt_(cluster|block)(<{flag}|ILb{bit})",
-                                 k)) / 1e6
-             for d, flag, bit in (("fwd", "true", 1), ("inv", "false", 0))}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+                "cuda" in str(evt.device_type).lower() and \
+                not _is_range(evt.key):
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+    device_s = sum(by_name.values()) / 1e6
+    port_s = {k: sum(v for name, v in by_name.items()
+                     if re.search(pat, name)) / 1e6
+              for k, pat in PORT_KERNELS.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return dict(untraced_wall_s=untraced, traced_wall_s=wall,
                 device_kernel_s=device_s,
                 device_busy_share=device_s / wall if wall else None,
                 device_busy_share_untraced=device_s / untraced,
-                ks_inner_s=ks_s, ks_inner_launches=launches,
-                ks_inner_share_of_device=ks_s / device_s if device_s else None,
-                ntt_s=ntt_s, ntt_launches=ntt_launches,
-                ntt_share_of_device=(sum(ntt_s.values()) / device_s
-                                     if device_s else None),
+                kernel_s=port_s, launches=launches,
+                kernel_share_of_device={k: v / device_s if device_s else None
+                                        for k, v in port_s.items()},
+                scopes_s=scope_split(prof.events(), device_s),
                 top_kernels_s=[(k[:90], _body(k), v / 1e6) for k, v in top])
+
+
+# the port's kernels by their demangled or mangled names: csrc/ntt.cu's
+# ntt_cluster<forward?, ...> and ntt_block<forward?, ...>, ks_inner.cu's
+# and ks_legs.cu's kernels
+PORT_KERNELS = {"ks_inner": "ks_inner_kernel",
+                "ntt_fwd": "ntt_(cluster|block)(<true|ILb1)",
+                "ntt_inv": "ntt_(cluster|block)(<false|ILb0)",
+                "ks_modup": "ks_modup_kernel",
+                "ks_moddown": "ks_moddown_kernel",
+                "sub_scale": "sub_scale_kernel"}
+
+
+def _is_range(name: str) -> bool:
+    """A named range (its span on the card's timeline is no kernel)."""
+    return name.startswith("ckks.")
+
+
+def scope_split(events, device_s: float) -> dict:
+    """Device seconds by named range.  A kernel belongs to the ranges open
+    on the host when its launch call ran (the CUDA runtime event with the
+    kernel's correlation id), which holds for torch's kernels and for the
+    port's own, launched through ctypes, alike: "self_s" counts it under
+    the innermost range, "total_s" under every open range.  "(outside the
+    ranges)" is the rest of device_s, launches outside every range and
+    kernels whose launch the trace lacks."""
+    marks, kernels = [], {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and _is_range(e.name):
+            marks.append((e.time_range.start, 0, e.name))
+            marks.append((e.time_range.end, 2, e.name))
+        elif e.device_type == DeviceType.CPU and "Launch" in e.name and \
+                e.name.startswith("cu"):
+            marks.append((e.time_range.start, 1, e.id))
+        elif e.device_type == DeviceType.CUDA and not _is_range(e.name):
+            kernels[e.id] = kernels.get(e.id, 0.0) + \
+                e.time_range.end - e.time_range.start
+    own, total, open_ranges = {}, {}, []
+    for _, kind, what in sorted(marks, key=lambda m: (m[0], m[1])):
+        if kind == 0:
+            open_ranges.append(what)
+        elif kind == 2:
+            open_ranges.reverse()
+            open_ranges.remove(what)
+            open_ranges.reverse()
+        elif open_ranges and what in kernels:
+            us = kernels.pop(what)
+            own[open_ranges[-1]] = own.get(open_ranges[-1], 0.0) + us
+            for name in set(open_ranges):
+                total[name] = total.get(name, 0.0) + us
+    out = {name: dict(self_s=own.get(name, 0.0) / 1e6,
+                      total_s=total[name] / 1e6)
+           for name in sorted(total, key=lambda n: -own.get(n, 0.0))}
+    out["(outside the ranges)"] = dict(
+        self_s=device_s - sum(own.values()) / 1e6, total_s=None)
+    return out
 
 
 def _body(name: str) -> str:
@@ -188,6 +243,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
+    # ops_impl installs its ranges itself; this also gives them to a copy
+    # of the package from before they existed, profiled with this script
+    # for a before/after comparison
+    scopes.install(ops_impl)
     if args.graph and not args.refresh:
         raise SystemExit("profile_round: --graph needs --refresh")
 

@@ -28,8 +28,8 @@ import time
 import numpy as np
 import torch
 
+from . import kernels
 from .aes_tables import aes128_partial
-from .core import ks_inner, ntt
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
 from .pipeline import AESFHE128Bitsliced
@@ -100,8 +100,8 @@ def run_round(aes: AESFHE128Bitsliced, st: BitState, r: int,
 def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
                  rounds: int) -> dict:
     """Encrypt `state`, run `rounds` rounds (run_round), decrypt and check
-    every block against the AES oracle.  The engine counters and the
-    kernels' launch counts (ks_inner, ntt fwd/inv) are zeroed just before
+    every block against the AES oracle.  The engine counters and every
+    kernel's launch count (`kernels.launch_counts`) are zeroed just before
     the rounds and read just after them."""
     wrap = aes.eng
     eng = wrap.engine
@@ -127,7 +127,7 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
     aes.refresh = timed_refresh
     bk = wrap.boot_key
     eng.reset_counters()
-    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
+    kernels.zero_launches()
     round_s, levels = [], []
     t_all = time.perf_counter()
     try:
@@ -140,8 +140,7 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
     finally:
         aes.refresh = refresh
     wall = time.perf_counter() - t_all
-    launches = ks_inner.launches
-    ntt_launches = dict(fwd=ntt.launches_fwd, inv=ntt.launches_inv)
+    launches = kernels.launch_counts()
     counters = dict(eng.counters)
 
     got = aes.decrypt_state(st)
@@ -163,8 +162,8 @@ def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,
         first_bootstrap_s=boot_s[0] if boot_s else None,
         steady_bootstrap_s=(float(np.median(boot_s[1:]))
                             if len(boot_s) > 1 else None),
-        keyswitches=counters["keyswitch"], ks_inner_launches=launches,
-        ntt_launches=ntt_launches, counters=counters,
+        keyswitches=counters["keyswitch"], launches=launches,
+        counters=counters,
         diag_stacks=len(bk.diags), diag_hits=bk.diag_hits,
         diag_misses=bk.diag_misses,
         diag_gib=sum(t.numel() for t in bk.diags.values()) * 4 / 2 ** 30,

@@ -17,7 +17,11 @@ Phases, each announced on its own line; any failure exits non-zero
      digits over q|specials (the top level; level 29's gapped rows), a
      rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
      view, DistNTT's [128, 55, 256], one row of 2^17, and the round
-     trips;
+     trips; the key-switch legs (ks_modup, ks_moddown, sub_scale; their
+     ptxas registers) at levels 54, 28 and 24 and bench's widest switch,
+     ks_modup over the mesh's digit ranges (a padded last digit, a range
+     of padding only), ks_moddown on inputs at float32 half-integers of
+     v_hat's sum (K = 8 and 4), sub_scale on strided views;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -82,11 +86,12 @@ Phases, each announced on its own line; any failure exits non-zero
      flagship line mapped from its own result.
 Every main path (slice, bench legs, flagship with its graph replays, each
 fused replay, zeta legs, every mesh rank) zeroes the launch counts just
-before it and prints its NTT kernel launches, which must be > 0 for both.
+before it and prints every kernel's launches, which must all be > 0, with
+one ks_moddown launch per ks_inner launch (one mod-down per key-switch).
 The line before the last is a JSON object with one entry per kernel
-(ks_inner, ntt_fwd, ntt_inv; launches summed over the slice, the bench
-legs, the flagship, the zeta legs and every rank of the mesh phase); the
-last line is
+(ks_inner, ntt_fwd, ntt_inv, ks_modup, ks_moddown, sub_scale; launches
+summed over the slice, the bench legs, the flagship, the zeta legs and
+every rank of the mesh phase); the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -106,7 +111,7 @@ import torch
 from aesfhe_tpu_torch import (bench, bootstrap, kernels, run_full_aes,
                               zeta_trace)
 from aesfhe_tpu_torch.aes_tables import aes128_partial
-from aesfhe_tpu_torch.core import ks_inner, ntt, ops_impl, rns
+from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
 from aesfhe_tpu_torch.core.params import get_params
 from aesfhe_tpu_torch.ops.bitplane import BitState
@@ -176,23 +181,43 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def zero_launches():
-    """Every kernel's launch count to 0, just before a main path runs."""
-    ks_inner.launches = ntt.launches_fwd = ntt.launches_inv = 0
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call of `reps` calls captured in one CUDA graph
+    and replayed (CUDA events): the kernels' time without the host's
+    enqueue cost, which exceeds a short kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
-def read_launches() -> dict:
-    return dict(ks_inner=ks_inner.launches, ntt_fwd=ntt.launches_fwd,
-                ntt_inv=ntt.launches_inv)
+zero_launches = kernels.zero_launches      # just before a main path runs
+read_launches = kernels.launch_counts
 
 
-def check_ntt_launches(where: str, counts: dict):
-    """Print a main path's NTT kernel launches; both must be > 0."""
-    print(f"{where}: NTT kernel launches: forward {counts['ntt_fwd']}, "
-          f"inverse {counts['ntt_inv']}", flush=True)
-    if counts["ntt_fwd"] <= 0 or counts["ntt_inv"] <= 0:
-        raise AssertionError(f"{where}: the NTT kernels were not both "
-                             f"launched: {counts}")
+def check_launches(where: str, counts: dict):
+    """Print a main path's kernel launches: every kernel must have run, and
+    the mod-down once per key-switch, as the inner product."""
+    print(f"{where}: kernel launches {counts}", flush=True)
+    if any(v <= 0 for v in counts.values()) or set(counts) != \
+            set(kernels.COUNTERS):
+        raise AssertionError(f"{where}: not every kernel was launched: "
+                             f"{counts}")
+    if counts["ks_moddown"] != counts["ks_inner"]:
+        raise AssertionError(f"{where}: {counts['ks_moddown']} mod-downs "
+                             f"for {counts['ks_inner']} inner products")
 
 
 def add_launches(total: dict, counts: dict):
@@ -451,6 +476,145 @@ def ks_inner_shard_case(params, level: int, d: int, rank: int, rng, dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
+def legs_case(name: str, label: str, run, plain, work) -> dict:
+    """One of ks_legs' kernels against its plain version on the card
+    (torch.equal), timed beside the plain version and the bound: the larger
+    of work's bytes over the memory rate and its 32-bit multiplies over
+    their rate.  The kernel is timed as graph replays (graph_ms, "ms"; its
+    eager calls, host enqueue included, as "eager_ms")."""
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}: max |err| {err}")
+    ms = graph_ms(run)
+    eager_ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, reps=3)
+    nbytes, mults = work
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = mults / INT32_MULS_PER_S * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    print(f"{name} {label} {tuple(got.shape)}: equal, kernel {ms:.4f} ms "
+          f"(eager calls {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.0%} of bound)",
+          flush=True)
+    return dict(name=name, shape=label, max_abs_err=err, ms=ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def half_integer_specials(params, level: int, B: int, rng, dev):
+    """The special rows d [B, K, N] (plain, canonical) of a mod-down input
+    whose float32 sums sum_i y_i/p_i lie within a few 1e-8 of a
+    half-integer, where the summation order decides v_hat's rounding
+    (tests/test_torch_core.py::test_mod_down_vhat_at_half_integers)."""
+    K, n = params.num_special, params.n
+    ps = np.asarray(params.special_primes, dtype=np.int64)
+    y = rng.integers(0, 1 << 62, (B, K, n)) % ps[:, None]
+    rest = (y[:, 1:] / ps[1:, None]).sum(1)
+    y0 = np.round((np.ceil(rest - 0.5) + 0.5 - rest) * ps[0]).astype(np.int64)
+    y[:, 0] = np.clip(y0 + rng.integers(-40, 41, (B, n)), 0, ps[0] - 1)
+    inv_w = np.asarray(params.md_tables(level)["inv_w"], dtype=np.int64)
+    w = np.array([pow(int(a), -1, int(p)) for a, p in zip(inv_w, ps)])
+    return torch.as_tensor((y * w[:, None]) % ps[:, None], device=dev).int()
+
+
+def ks_legs_cases(params, rng, dev) -> list:
+    """ks_modup, ks_moddown and sub_scale (csrc/ks_legs.cu; their ptxas
+    registers) against their plain versions at the main path's shapes: the
+    top level (J = 7 digits over M = 63 rows, two components), levels 28
+    and 24 (J = 4), bench's widest switch (level 15, K = 4); ks_modup over
+    the mesh's digit ranges at the top level for D = 2 and 4 (the last
+    digit padding) and over a range of padding only; ks_moddown on inputs
+    at float32 half-integers of v_hat's sum for K = 8 and K = 4; sub_scale
+    on strided views (a mod-down's q rows of [2, M, N], a rescale's first
+    l rows of [2, l+1, N])."""
+    log = kernels.BUILD_DIR / "ks_legs.ptxas.log"
+    entry = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry is not None:
+            print(f"ptxas {entry}: {line.split(':', 1)[1].strip()}",
+                  flush=True)
+    bp = bench.bench_params(BENCH_LOGN, BENCH_LEVELS)
+    cases = []
+
+    def residues(p, rows, lead):
+        qs = np.asarray(p.all_primes, dtype=np.int64)[np.asarray(rows)]
+        x = rng.integers(0, 1 << 62, tuple(lead) + (len(rows), p.n))
+        return torch.as_tensor(x % qs[:, None], device=dev).int()
+
+    def modup(p, level, tag, j0=0, j1=None):
+        tab = ks_legs.ModupTables(p, level, dev)
+        j1 = tab.J if j1 is None else j1
+        c = residues(p, ops_impl._rows(p, level, False), ())
+        live = max(0, min(j1, tab.J) - j0)
+        work = ks_legs.modup_work(sum(tab.dig[j0:j0 + live, 1].tolist()),
+                                  j1 - j0, tab.M, p.n)
+        out = legs_case("ks_modup", f"{tag} digits [{j0}, {j1}) of {tab.J}",
+                        lambda: ks_legs.ks_modup(c, tab, j0, j1),
+                        lambda: ks_legs.ks_modup_plain(c, tab, j0, j1), work)
+        if live < j1 - j0 and bool(ks_legs.ks_modup(c, tab, j0, j1)
+                                   [live:].any()):
+            raise AssertionError("ks_modup: a padded digit is not zero")
+        return out
+
+    def moddown(p, level, tag, d=None):
+        tab = ks_legs.ModdownTables(p, level, dev)
+        if d is None:
+            d = residues(p, range(p.num_q, p.L_tot), (2,))
+        work = ks_legs.moddown_work(d.shape[0], tab.K, tab.R, p.n)
+        return legs_case("ks_moddown", f"{tag} K={tab.K}",
+                         lambda: ks_legs.ks_moddown(d, tab),
+                         lambda: ks_legs.ks_moddown_plain(d, tab), work)
+
+    def sub_scale(p, level, tag, rows):
+        wide = residues(p, range(rows), (2,))
+        x = wide[:, :level + 1]
+        y = residues(p, range(level + 1), (2,))
+        tab = ks_legs.ModdownTables(p, level, dev).pinv
+        return legs_case("sub_scale", f"{tag}, x a [2, {level + 1}] view of "
+                         f"[2, {rows}]", lambda: ks_legs.sub_scale(x, y, tab),
+                         lambda: ks_legs.sub_scale_plain(x, y, tab),
+                         ks_legs.sub_scale_work(2, level + 1, p.n))
+
+    top = params.top_level
+    K = params.num_special
+    for level in (top, 28, 24):
+        cases.append(modup(params, level, f"level {level}"))
+    cases.append(modup(bp, BENCH_LEVELS - 1,
+                       f"bench level {BENCH_LEVELS - 1}"))
+    for d in (2, 4):
+        pad = digit_pad(params.dnum, d)
+        cases.append(modup(params, top, f"level {top} mesh D={d} last rank",
+                           pad - pad // d, pad))
+    cases.append(modup(params, 15, "level 15 mesh D=2 rank 1 (padding only)",
+                       digit_pad(params.dnum, 2) // 2,
+                       digit_pad(params.dnum, 2)))
+    for level in (top, 28, 24):
+        cases.append(moddown(params, level, f"level {level}"))
+    cases.append(moddown(bp, BENCH_LEVELS - 1,
+                         f"bench level {BENCH_LEVELS - 1}"))
+    cases.append(moddown(params, top, f"level {top} half-integer v_hat sums",
+                         half_integer_specials(params, top, 2, rng, dev)))
+    cases.append(moddown(bp, BENCH_LEVELS - 1,
+                         f"bench level {BENCH_LEVELS - 1} half-integer v_hat "
+                         f"sums", half_integer_specials(
+                             bp, BENCH_LEVELS - 1, 2, rng, dev)))
+    for level in (top, 28, 24):
+        cases.append(sub_scale(params, level, f"mod-down level {level}",
+                               level + 1 + K))
+    cases.append(sub_scale(params, top - 1, f"rescale level {top}", top + 1))
+    cases.append(sub_scale(bp, BENCH_LEVELS - 1,
+                           f"bench mod-down level {BENCH_LEVELS - 1}",
+                           BENCH_LEVELS + bp.num_special))
+    return cases
+
+
 def mesh_rank(rank: int, world: int, profile: str, device_type: str,
               boots: int) -> dict:
     """One rank of the mesh phase (the module docstring, phase 9)."""
@@ -613,7 +777,7 @@ def mesh_phase(boots: int) -> dict:
               f"all-reduces take "
               f"{_share(r)}; peak device memory {r['peak_gib']:.2f} GiB",
               flush=True)
-        check_ntt_launches(f"mesh rank {r['rank']}", r["counts"])
+        check_launches(f"mesh rank {r['rank']}", r["counts"])
     lv = sorted(r0["levels"].items(), reverse=True)
     print(f"key-switches per level: {lv}", flush=True)
     sb = r0["single_boot_s"]
@@ -628,7 +792,7 @@ def mesh_phase(boots: int) -> dict:
           f"{r0['blocks']} blocks equal aes128_partial(block, key, 1); the "
           f"bootstraps (exit level {r0['exit_level']}, max | |slot| - 1 | "
           f"{r0['slot_err']:.3e}) decode to the round's bits 0-3", flush=True)
-    total = dict(ks_inner=0, ntt_fwd=0, ntt_inv=0)
+    total = dict.fromkeys(kernels.COUNTERS, 0)
     for r in res:
         add_launches(total, r["counts"])
     return dict(rank0=r0, launches=total, world=world, backend=backend)
@@ -653,8 +817,7 @@ def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
     if per.get("ks_inner_launches", 0) <= 0 or \
             per["ks_inner_launches"] != per.get("keyswitch") or \
             per.get("bootstrap") != 1 or \
-            per.get("ntt_fwd_launches", 0) <= 0 or \
-            per.get("ntt_inv_launches", 0) <= 0:
+            any(per.get(f"{k}_launches", 0) <= 0 for k in kernels.COUNTERS):
         raise AssertionError(f"a replay would count {per}")
 
     def timed(fn):
@@ -694,9 +857,8 @@ def fused_phase(wrap: EngineWrapper, inputs: list) -> dict:
           f"for bit (and two back-to-back replays stay independent); warm "
           f"eager {[round(x, 4) for x in eager_s]} s, replay "
           f"{[round(x, 4) for x in replay_s]} s (CUDA events)", flush=True)
-    check_ntt_launches("fused bootstrap, per replay",
-                       dict(ntt_fwd=per["ntt_fwd_launches"],
-                            ntt_inv=per["ntt_inv_launches"]))
+    check_launches("fused bootstrap, per replay",
+                   {k: per[f"{k}_launches"] for k in kernels.COUNTERS})
     return dict(capture_s=fb.capture_s, pool_gib=fb.pool_bytes / 2 ** 30,
                 eager_s=float(np.median(eager_s)),
                 replay_s=float(np.median(replay_s)),
@@ -753,7 +915,7 @@ def zeta_leg(aes: AESFHE128, name: str, start: np.ndarray, run,
         raise AssertionError(f"zeta {name}: ks_inner launched {launches} "
                              f"times for {counters['keyswitch']} "
                              f"key-switches")
-    check_ntt_launches(f"zeta {name}", counts)
+    check_launches(f"zeta {name}", counts)
     return dict(seconds=s, launches=counts, err=err, got=got,
                 bootstraps=counters["bootstrap"])
 
@@ -845,7 +1007,7 @@ def bench_phase() -> int:
     line printed, its output held against the AES oracle, launches equal to
     key-switches over the warm-up and the timed iterations, both NTT
     kernels launched.  Returns each kernel's launches."""
-    total = dict(ks_inner=0, ntt_fwd=0, ntt_inv=0)
+    total = dict.fromkeys(kernels.COUNTERS, 0)
     for mode in ("bitplane", "zeta"):
         t0 = time.perf_counter()
         leg = bench.SETUPS[mode](BENCH_LOGN, BENCH_LEVELS, "cuda")
@@ -879,7 +1041,7 @@ def bench_phase() -> int:
             raise AssertionError(f"bench {mode}: ks_inner launched "
                                  f"{launches} times for "
                                  f"{counters['keyswitch']} key-switches")
-        check_ntt_launches(f"bench {mode}", counts)
+        check_launches(f"bench {mode}", counts)
         add_launches(total, counts)
         del leg, out, eng
         torch.cuda.empty_cache()
@@ -887,14 +1049,14 @@ def bench_phase() -> int:
 
 
 def finish(card: str, cases: list, top: dict, ntt_shapes: list,
-           launches: dict) -> int:
+           legs: list, launches: dict) -> int:
     """The closing lines: the kernels line (each kernel's `launches` summed
     over the main paths run; ms, plain_ms and bound_ms of its widest shape,
     and every shape timed under "shapes"), the card, the contract's last
     line."""
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
           flush=True)
-    kernels = [dict(
+    entries = [dict(
         name="ks_inner", route="cuda",
         source="aesfhe_tpu_torch/csrc/ks_inner.cu",
         replaces="aesfhe_tpu/core/pallas_ks.py:38",
@@ -905,7 +1067,7 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
     for name, line in (("ntt_fwd", 239), ("ntt_inv", 261)):
         mine = [c for c in ntt_shapes if c["name"] == name]
         widest = mine[0]            # the top level's decomposition
-        kernels.append(dict(
+        entries.append(dict(
             name=name, route="cuda", source="aesfhe_tpu_torch/csrc/ntt.cu",
             replaces=f"aesfhe_tpu/core/mxu_ntt.py:{line}",
             launches=launches[name],
@@ -913,7 +1075,21 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
             library_ms=None, shapes=mine))
-    print(json.dumps({"kernels": kernels}))
+    # ks_legs.cu's kernels; no single PyTorch call computes any of them
+    for name, line_no in (("ks_modup", 497), ("ks_moddown", 697),
+                          ("sub_scale", 760)):
+        mine = [c for c in legs if c["name"] == name]
+        widest = mine[0]            # the top level
+        entries.append(dict(
+            name=name, route="cuda",
+            source="aesfhe_tpu_torch/csrc/ks_legs.cu",
+            replaces=f"aesfhe_tpu/core/ops_impl.py:{line_no}",
+            launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=widest["ms"], plain_ms=widest["plain_ms"],
+            bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
+            library_ms=None, shapes=mine))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -968,10 +1144,11 @@ def main(argv=None) -> int:
     cases.append(ks_inner_case(bench.bench_params(BENCH_LOGN, BENCH_LEVELS),
                                BENCH_LEVELS - 1, None, rng, dev))
     ntt_shapes = ntt_cases(params, rng, dev)
+    legs = ks_legs_cases(params, rng, dev)
     torch.cuda.empty_cache()
     if mesh_only:
         phase("mesh")
-        return finish(card, cases, top, ntt_shapes,
+        return finish(card, cases, top, ntt_shapes, legs,
                       mesh_phase(2)["launches"])
 
     phase("slice")
@@ -1032,7 +1209,7 @@ def main(argv=None) -> int:
     if launches <= 0 or launches != counters["keyswitch"]:
         raise AssertionError(f"ks_inner launched {launches} times for "
                              f"{counters['keyswitch']} key-switches")
-    check_ntt_launches("slice", counts)
+    check_launches("slice", counts)
     total = dict(counts)
     del wrap, aes, eng, st
     torch.cuda.empty_cache()
@@ -1068,10 +1245,8 @@ def main(argv=None) -> int:
         res = run_full_aes.run_flagship(aes, state, FLAGSHIP_ROUNDS)
     finally:
         aes.refresh = refresh
-    flag_launches = res["ks_inner_launches"]
-    flag_counts = dict(ks_inner=flag_launches,
-                       ntt_fwd=res["ntt_launches"]["fwd"],
-                       ntt_inv=res["ntt_launches"]["inv"])
+    flag_counts = res["launches"]
+    flag_launches = flag_counts["ks_inner"]
     boot_s = res["bootstrap_s"]
     print(f"{res['blocks']} blocks, {FLAGSHIP_ROUNDS} rounds from level "
           f"{res['work_level']}: encrypt_state {res['encrypt_s']:.2f} s, "
@@ -1112,10 +1287,11 @@ def main(argv=None) -> int:
     if flag_launches <= 0 or flag_launches != res["keyswitches"]:
         raise AssertionError(f"ks_inner launched {flag_launches} times for "
                              f"{res['keyswitches']} key-switches")
-    check_ntt_launches("flagship (the graph replays included)", flag_counts)
-    if any(g["per_replay"].get(k, 0) <= 0 for g in res["graphs"]
-           for k in ("ntt_fwd_launches", "ntt_inv_launches")):
-        raise AssertionError("a bootstrap graph replays no NTT kernel")
+    check_launches("flagship (the graph replays included)", flag_counts)
+    if any(g["per_replay"].get(f"{k}_launches", 0) <= 0
+           for g in res["graphs"] for k in kernels.COUNTERS):
+        raise AssertionError("a bootstrap graph does not replay every "
+                             "kernel")
     add_launches(total, flag_counts)
     # bench's flagship line, mapped from this phase's own run
     print(json.dumps(bench.flagship_record(dict(res, profile=PROFILE))),
@@ -1150,7 +1326,7 @@ def main(argv=None) -> int:
     # ten zeta rounds need the time
     phase("mesh")
     add_launches(total, mesh_phase(1)["launches"])
-    return finish(card, cases, top, ntt_shapes, total)
+    return finish(card, cases, top, ntt_shapes, legs, total)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@ from aesfhe_tpu_torch.core import ntt as tntt
 from aesfhe_tpu_torch.core import rns as trns
 from aesfhe_tpu_torch.core.params import get_params as tparams
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Several test workers share the cores, and torch's default pool of one
+    thread per core then stalls in its barriers; two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ALL = ["tiny", "test", "deep", "hp", "boot_tiny", "prod", "prod_boot",
        "prod_hp"]
 SMALL = ["tiny", "test", "deep", "hp", "boot_tiny"]

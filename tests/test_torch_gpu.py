@@ -1,5 +1,6 @@
 """Card-only checks of the port's CUDA kernels against their plain versions,
-and of the fused bootstrap's CUDA graph against the eager bootstrap.
+of the fused bootstrap's CUDA graph against the eager bootstrap, and of a
+captured key-switch against the eager one.
 
 Skipped without a CUDA card.  This file imports no JAX, so it also runs on
 a machine without the reference package's dependencies:
@@ -12,7 +13,7 @@ import torch
 from aesfhe_tpu_torch import interop
 from aesfhe_tpu_torch.bootstrap import FusedBootstrap
 from aesfhe_tpu_torch.context import EngineContext
-from aesfhe_tpu_torch.core import ks_inner, ntt, ops_impl, rns
+from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
 from aesfhe_tpu_torch.core.params import CKKSParams, get_params
 
 
@@ -235,3 +236,75 @@ def test_dryrun_multichip_on_the_card():
     from aesfhe_tpu_torch.graft_entry import dryrun_multichip
     out = dryrun_multichip(2)
     assert out["ntt_exact"] is True and out["keyswitches"] > 0
+
+
+def _residues(p, rows, lead, rng, dev="cuda"):
+    qs = np.asarray(p.all_primes, dtype=np.int64)[np.asarray(rows)]
+    x = rng.integers(0, 1 << 62, tuple(lead) + (len(rows), p.n))
+    return torch.as_tensor(x % qs[:, None], device=dev).int()
+
+
+@pytest.mark.parametrize("level", [54, 28])
+def test_ks_legs_kernels_equal_plain(level):
+    """ks_modup (every digit, a mesh rank's range with a padded digit, a
+    range of padding only), ks_moddown (random special rows, and rows whose
+    float32 v_hat sums sit at half-integers) and sub_scale (x a strided
+    view of the mod-down's wider input) equal their plain versions at
+    prod_boot's shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = get_params("prod_boot")
+    rng = np.random.default_rng(level)
+    up = ks_legs.ModupTables(p, level, "cuda")
+    c = _residues(p, range(level + 1), (), rng)
+    for j0, j1 in ((0, up.J), (up.J - 1, up.J + 1), (up.J + 1, up.J + 3)):
+        before = ks_legs.launches_modup
+        got = ks_legs.ks_modup(c, up, j0, j1)
+        assert ks_legs.launches_modup == before + 1
+        assert torch.equal(got, ks_legs.ks_modup_plain(c, up, j0, j1))
+    down = ks_legs.ModdownTables(p, level, "cuda")
+    K, ps = p.num_special, np.asarray(p.special_primes, dtype=np.int64)
+    y = rng.integers(0, 1 << 62, (2, K, p.n)) % ps[:, None]
+    rest = (y[:, 1:] / ps[1:, None]).sum(1)
+    y0 = np.round((np.ceil(rest - 0.5) + 0.5 - rest) * ps[0]).astype(np.int64)
+    y[:, 0] = np.clip(y0 + rng.integers(-40, 41, (2, p.n)), 0, ps[0] - 1)
+    w = [pow(int(a), -1, int(q)) for a, q in
+         zip(p.md_tables(level)["inv_w"], ps)]
+    half = torch.as_tensor((y * np.asarray(w)[:, None]) % ps[:, None],
+                           device="cuda").int()
+    for d in (_residues(p, range(p.num_q, p.L_tot), (2,), rng), half):
+        assert torch.equal(ks_legs.ks_moddown(d, down),
+                           ks_legs.ks_moddown_plain(d, down))
+    x = _residues(p, ops_impl._rows(p, level, True), (2,), rng)[:, :level + 1]
+    yq = _residues(p, range(level + 1), (2,), rng)
+    assert not x.is_contiguous()
+    assert torch.equal(ks_legs.sub_scale(x, yq, down.pinv),
+                       ks_legs.sub_scale_plain(x, yq, down.pinv))
+    torch.cuda.synchronize()
+
+
+def test_keyswitch_graph_replay_equals_eager():
+    """One key-switch at prod_boot's top level (INTT, ks_modup, NTT,
+    ks_inner, INTT, ks_moddown, NTT, sub_scale) captured in a CUDA graph
+    after an eager warm-up: a replay on another input equals the eager
+    key-switch of that input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch.core.engine import Engine
+    p = get_params("prod_boot")
+    tabs = Engine(p, device="cuda").tabs
+    level = p.top_level
+    rng = np.random.default_rng(5)
+    kb, ka = (_residues(p, range(p.L_tot), (p.dnum,), rng) for _ in range(2))
+    c0, c1 = (_residues(p, range(level + 1), (), rng) for _ in range(2))
+    ops_impl.keyswitch(p, tabs, c0, kb, ka)             # warm-up
+    torch.cuda.synchronize()
+    static = c0.clone()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        b, a = ops_impl.keyswitch(p, tabs, static, kb, ka)
+    static.copy_(c1)
+    g.replay()
+    want_b, want_a = ops_impl.keyswitch(p, tabs, c1, kb, ka)
+    torch.cuda.synchronize()
+    assert torch.equal(b, want_b) and torch.equal(a, want_a)

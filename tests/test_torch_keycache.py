@@ -18,6 +18,17 @@ from aesfhe_tpu_torch.core.engine import Engine
 from aesfhe_tpu_torch.core.params import CKKSParams, get_params
 from aesfhe_tpu_torch.utils import serialization as tser
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Several test workers share the cores, and torch's default pool of one
+    thread per core then stalls in its barriers; two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 FAMILY = ("relin", "conj")
 
 

@@ -15,6 +15,17 @@ from aesfhe_tpu_torch.core import keys as tkeys
 from aesfhe_tpu_torch.core.engine import Engine
 from aesfhe_tpu_torch.core.params import get_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Several test workers share the cores, and torch's default pool of one
+    thread per core then stalls in its barriers; two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 SEED = 1234
 
 

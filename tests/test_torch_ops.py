@@ -1,6 +1,9 @@
 """The port's ops_impl primitives against the reference's, bit for bit, on
 the tiny and deep profiles with the reference's keys carried across
 (interop.py).  Inputs are random residues from a numpy seed."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,6 +122,12 @@ def test_walsh_sub_bytes_core(tiny_engine):
                                     jnp.asarray(b), jnp.asarray(consts)))
 
 
+def _compiled(fn, jp, jt):
+    """The reference's fn(params, tabs, x, level) as one compiled program
+    (its op-by-op dispatch takes seconds on the CPU)."""
+    return jax.jit(functools.partial(fn, jp, jt), static_argnums=1)
+
+
 def test_keyswitch_paths(pair):
     """ks_decompose, keyswitch (relin key, full layout), hoisted_rotate
     (rotation key) and the fused mod-down; the exact mod-down oracle on
@@ -149,12 +158,13 @@ def test_keyswitch_paths(pair):
                                   E["rot"].keys[g].a))
         x = _rand(p, tops._rows(p, lvl, True), (2,), 30 + lvl)
         _same(tops._mod_down_specials(p, tt, _t(x).long(), lvl).int(),
-              jops._mod_down_specials(jp, jt, jnp.asarray(x), lvl))
+              _compiled(jops._mod_down_specials, jp, jt)(jnp.asarray(x),
+                                                          lvl))
         if profile == "tiny":
             _same(tops._mod_down_specials_exact(p, tt, _t(x[0]).long(),
                                                 lvl).int(),
-                  jops._mod_down_specials_exact(jp, jt, jnp.asarray(x[0]),
-                                                lvl))
+                  _compiled(jops._mod_down_specials_exact, jp, jt)(
+                      jnp.asarray(x[0]), lvl))
 
 
 def test_capped_key_keyswitch(tiny_engine, monkeypatch):

@@ -26,6 +26,17 @@ from aesfhe_tpu.parallel.mesh_engine import MeshEngine as JMeshEngine
 from aesfhe_tpu_torch.parallel import launch
 from tests import torch_mesh_ranks as ranks
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Several test workers share the cores, and torch's default pool of one
+    thread per core then stalls in its barriers; two threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 STEPS = [1, 2, 4]
 REF_D = 4                      # the reference's mesh, as tests/test_parallel.py
 
