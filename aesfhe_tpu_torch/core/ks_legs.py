@@ -1,6 +1,7 @@
 """The hybrid key-switch's basis conversions and their epilogue: the CUDA
-kernels' wrappers (`aesfhe_tpu_torch/csrc/ks_legs.cu`, design note there)
-and their plain torch versions.
+kernels' wrappers (`aesfhe_tpu_torch/csrc/ks_legs.cu`, design note there),
+their plain torch versions, and a CPU model of the kernels' digit
+arithmetic.
 
     ks_modup(c, tab, j0, j1)   out[j, m] = sum_{a in digit j0+j}
                                (c_a * inv_w_a mod q_a) * conv_w[a, m]
@@ -23,6 +24,18 @@ which is exact because a digit (or the special set) has at most
 `MAX_DIGIT` primes of at most 30 bits, so every sum stays below 2^63 (the
 tables raise otherwise).
 
+The kernels compute the conversions as exact u8 x u8 -> s32 tensor-core
+products instead (the byte scheme of the reference's `core/mxu_ntt.py`):
+with k = 4a + s over limb a and byte s of y_a, the digit matrices
+A_e[m, k] = byte_e(conv_w[a, m] 256^s 2^32 mod q_m) give
+S_e = sum_k A_e[m, k] byte_s(y_a) < 2^21, and
+sum_a y_a conv_w[a, m] = (L + 2^16 H) 2^-32 mod q_m with L = S_0 + 2^8 S_1
+and H = S_2 + 2^8 S_3 both below 2^30: one Montgomery step
+(`digit_tables` builds A_e in the mma's fragment order, `fold_table` the
+fold's constants).  `convert_digits_model` computes that arithmetic on the
+CPU, step by step, and `ks_modup_model`/`ks_moddown_model` wrap it as the
+kernels do.
+
 On a CPU tensor each wrapper computes the plain version; on a CUDA tensor
 it launches its kernel or raises.  `launches_modup`, `launches_moddown`
 and `launches_sub_scale` count the launches.
@@ -41,17 +54,20 @@ launches_modup = 0
 launches_moddown = 0
 launches_sub_scale = 0
 MAX_DIGIT = 8            # the kernels' largest digit / special set (kMaxDigit)
+# mma.sync.m16n8k32's A fragment: lane l's register r holds the 4 bytes
+# k = 4c .. 4c+3 of row FRAG_ROW[l, r] of a 16-row tile, c = FRAG_WORD[l, r]
+# (the PTX ISA's layout for .u8: row = l/4 (+8 for r odd), c = l%4 (+4 for
+# r >= 2)); with k = 4a + s, word c is limb a's 4 bytes.
+_LANE = np.arange(32)[:, None]
+_REG = np.arange(4)[None, :]
+FRAG_ROW = (_LANE >> 2) + 8 * (_REG & 1)
+FRAG_WORD = (_LANE & 3) + 4 * (_REG >> 1)
 
 
 def _bits32(a) -> np.ndarray:
     """uint32 values -> int32 array with the same bits."""
     return np.ascontiguousarray(np.asarray(a, dtype=np.uint64)
                                 .astype(np.uint32)).view(np.int32)
-
-
-def _mu(qs) -> np.ndarray:
-    """floor(2^64 / q) of each prime, the kernels' Barrett constant."""
-    return np.asarray([(1 << 64) // int(q) for q in qs], dtype=np.int64)
 
 
 def _shoup(ws, qs) -> np.ndarray:
@@ -69,6 +85,60 @@ def _check_sum(what: str, terms) -> None:
         raise ValueError(f"{what}: the 64-bit accumulator could overflow")
 
 
+def digit_tables(conv, qs, in_primes) -> np.ndarray:
+    """The u8 digit matrices of a conversion out[m] = sum_a y_a conv[a, m]
+    mod qs[m], y_a < in_primes[a], in mma.sync m16n8k32's A-fragment order:
+    conv [..., A, M] (A <= MAX_DIGIT) -> int32 [..., MT, 4, 32, 4]
+    (MT = ceil(M / 16) row tiles, digit e, lane, register; uint32 bits),
+    A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32 mod q_m), zero past A
+    limbs and M rows (the factor 2^32 cancels the fold's Montgomery step).
+    Raises unless the kernels' fold is exact: odd primes between 2^15 and
+    2^31 and, for the largest bytes the inputs can have, S_e < 2^21 and
+    L = S_0 + 2^8 S_1, H = S_2 + 2^8 S_3 below 2^30."""
+    conv = np.asarray(conv, dtype=np.int64)
+    *lead, A, M = conv.shape
+    q = np.asarray(qs, dtype=np.int64)
+    pin = np.asarray(in_primes, dtype=np.int64)
+    if A > MAX_DIGIT or len(pin) != A:
+        raise ValueError(f"digit_tables: {A} limbs for {len(pin)} primes, "
+                         f"at most {MAX_DIGIT}")
+    if np.any(q % 2 == 0) or q.min() <= 1 << 15 or q.max() >= 1 << 31 or \
+            pin.max() >= 1 << 31:
+        raise ValueError("digit_tables: the fold needs odd primes between "
+                         "2^15 and 2^31")
+    MT = -(-M // 16)
+    pw = np.asarray([[pow(256, s, int(qm)) * (1 << 32) % int(qm)
+                      for qm in q] for s in range(4)])
+    val = conv[..., :, None, :] % q * pw % q              # [..., A, s, M]
+    e8 = 8 * np.arange(4)
+    byte = (val[..., None] >> e8) & 255                   # [..., A, s, M, e]
+    ae = np.zeros(tuple(lead) + (4, 16 * MT, MAX_DIGIT, 4), dtype=np.uint8)
+    ae[..., :M, :A, :] = np.moveaxis(byte, (-1, -2), (-4, -3))
+    # the largest byte s of a residue below each input prime
+    top = np.zeros((MAX_DIGIT, 4), dtype=np.int64)
+    top[:A] = np.minimum((pin[:, None] - 1) >> e8, 255)
+    peak = (ae.astype(np.int64) * top).sum((-2, -1))      # [..., e, row]
+    low = peak[..., 0, :] + (peak[..., 1, :] << 8)
+    high = peak[..., 2, :] + (peak[..., 3, :] << 8)
+    if peak.max() >= 1 << 21 or max(low.max(), high.max()) >= 1 << 30:
+        raise ValueError("digit_tables: a digit product could overflow the "
+                         "32-bit fold")
+    words = np.ascontiguousarray(ae).view("<u4")[..., 0]   # [..., e, row, a]
+    words = words.reshape(tuple(lead) + (4, MT, 16, MAX_DIGIT))
+    frag = words[..., FRAG_ROW, FRAG_WORD]                # [..., e, MT, l, r]
+    return _bits32(np.moveaxis(frag, -4, -3))
+
+
+def fold_table(qs, corr=None) -> np.ndarray:
+    """The fold's constants of each output prime, int32 [3, M] (uint32
+    bits): q, q^-1 mod 2^32 and the correction factor corr (ks_moddown's
+    -P 2^32 mod q; zero by default)."""
+    q = [int(x) for x in qs]
+    corr = [0] * len(q) if corr is None else [int(c) for c in corr]
+    return _bits32(np.asarray([q, [pow(x, -1, 1 << 32) for x in q], corr],
+                              dtype=np.uint64))
+
+
 def _widen(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & MASK32
 
@@ -77,8 +147,10 @@ class ModupTables:
     """ks_modup's constants of one level on one device (int32 tensors of
     uint32 bits): per active digit its first limb and limb count `dig`
     [J, 2], its limbs' primes `dq`, inv_w `dinv` and their Shoup companions
-    `dinvsh` [J, MAX_DIGIT], conv_w `conv` [J, MAX_DIGIT, M]; the basis
-    primes `bq` [M] and their floor(2^64 / q) `bmu` (int64) [M]."""
+    `dinvsh` [J, MAX_DIGIT], conv_w `conv` [J, MAX_DIGIT, M] (the plain
+    version's) and its digit matrices `afrag` [J, MT, 4, 32, 4]
+    (`digit_tables`, the kernel's); the basis primes `bq` [M] and the
+    fold's constants `bfold` [3, M] (`fold_table`)."""
 
     def __init__(self, params, level: int, device):
         kst = params.ks_tables(level)
@@ -104,6 +176,9 @@ class ModupTables:
             dinv[j, :a] = g["inv_w"]
             dinvsh[j, :a] = g["inv_sh"]
             conv[j, :a] = g["conv_w"]
+        # a digit's unused limbs have prime 0 here: no input, zero bytes
+        afrag = np.stack([digit_tables(conv[j], basis, np.maximum(dq[j], 1))
+                          for j in range(J)])
         self.level, self.J, self.M = level, J, M
 
         def up(a):
@@ -112,15 +187,18 @@ class ModupTables:
         self.dig = up(dig)
         self.dq, self.dinv, self.dinvsh, self.conv, self.bq = (
             up(_bits32(a)) for a in (dq, dinv, dinvsh, conv, basis))
-        self.bmu = up(_mu(basis))
+        self.afrag = up(afrag)
+        self.bfold = up(fold_table(basis))
 
 
 class ModdownTables:
     """ks_moddown's constants of one level on one device: the special
     primes `sp`, inv_w `sinv` and Shoup companions `sinvsh` [K], 1/p_i
-    `inv_p` (float32) [K], conv_w `conv` [K, R], the q primes `q`, their
-    floor(2^64 / q) `mu` (int64), P mod q `pmod` and its companions
-    `pmodsh` [R]; and `pinv`, sub_scale's table of P^-1 mod q (R = l+1)."""
+    `inv_p` (float32) [K], conv_w `conv` [K, R] (the plain version's) and
+    its digit matrices `afrag` [MT, 4, 32, 4] (the kernel's), the q primes
+    `q` and P mod q `pmod` [R] (the plain version's), the fold's constants
+    `fold` [3, R] with the correction factor -P 2^32 mod q (the kernel's);
+    and `pinv`, sub_scale's table of P^-1 mod q (R = l+1)."""
 
     def __init__(self, params, level: int, device):
         mdt = params.md_tables(level)
@@ -134,13 +212,14 @@ class ModdownTables:
         def up(a, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-        self.sp, self.sinv, self.sinvsh, self.conv, self.q, self.pmod, \
-            self.pmodsh = (up(_bits32(a)) for a in (
-                sp, mdt["inv_w"], mdt["inv_sh"], mdt["conv_w"], qs,
-                mdt["pmod_w"], mdt["pmod_sh"]))
+        self.sp, self.sinv, self.sinvsh, self.conv, self.q, self.pmod = (
+            up(_bits32(a)) for a in (sp, mdt["inv_w"], mdt["inv_sh"],
+                                     mdt["conv_w"], qs, mdt["pmod_w"]))
         self.inv_p = up((1.0 / np.asarray(sp, dtype=np.float64))
                         .astype(np.float32))
-        self.mu = up(_mu(qs))
+        self.afrag = up(digit_tables(mdt["conv_w"], qs, sp))
+        self.fold = up(fold_table(qs, [(-int(pm) << 32) % q for pm, q in
+                                       zip(mdt["pmod_w"], qs)]))
         self.pinv = up(scale_table(qs, mdt["pinv_w"]))
 
 
@@ -228,6 +307,107 @@ def sub_scale_plain(x, y, tab) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# CPU model of the kernels' digit arithmetic (int64 emulating the kernels'
+# u8 products and 32-bit fold; tests hold it equal to the plain versions)
+# ---------------------------------------------------------------------------
+
+def _digit_matrices(afrag: torch.Tensor) -> torch.Tensor:
+    """afrag int32 [..., MT, 4, 32, 4] (`digit_tables`) -> the u8 matrices
+    A_e as int32 [..., 4, 16 MT, 4 MAX_DIGIT] (e, row, k = 4a + s)."""
+    f = _widen(afrag).movedim(-3, -4)                     # [..., e, MT, l, r]
+    *lead, MT = f.shape[:-2]
+    words = torch.empty(tuple(lead) + (MT, 16, MAX_DIGIT), dtype=torch.int64,
+                        device=f.device)
+    words[..., torch.as_tensor(FRAG_ROW), torch.as_tensor(FRAG_WORD)] = f
+    shifts = 8 * torch.arange(4, device=f.device)
+    byte = (words[..., None] >> shifts) & 255             # [..., MT, 16, a, s]
+    return byte.reshape(tuple(lead) + (16 * MT, 4 * MAX_DIGIT)).to(
+        torch.int32)
+
+
+def convert_digits_model(y, afrag, fold, vhat=None,
+                         peaks: dict | None = None):
+    """The kernels' conversion: y int64 [B, MAX_DIGIT, N] (values below
+    2^32; zero past the digit's limbs), afrag [MT, 4, 32, 4], fold [3, M],
+    vhat (ks_moddown's v_hat, int64 [B, 1, N]) -> int64 [B, M, N]
+    canonical, computed as the kernels do: the bytes B[4a + s] =
+    byte_s(y_a), S_e = A_e @ B as int32 products, L = S_0 + (S_1 << 8),
+    H = S_2 + (S_3 << 8), x = L + 2^16 H (+ vhat corr), then the Montgomery
+    step m = x_lo q^-1 mod 2^32, r = x_hi - hi(m q), plus q if negative.
+    `peaks` (if given) gets the largest S_e, L and H."""
+    A = _digit_matrices(afrag)                            # [4, Mp, 32]
+    Bn, _, N = y.shape
+    shifts = (8 * torch.arange(4, device=y.device)).reshape(1, 1, 4, 1)
+    b = ((y[:, :, None, :] >> shifts) & 255).reshape(Bn, 4 * MAX_DIGIT, N)
+    M = fold.shape[1]
+    S = (A[:, None] @ b.to(torch.int32)[None])[:, :, :M].long()
+    L = S[0] + (S[1] << 8)
+    H = S[2] + (S[3] << 8)
+    q, qinv, corr = (_widen(fold[i]).reshape(-1, 1) for i in range(3))
+    x = L + (H << 16)
+    if vhat is not None:
+        x = x + vhat * corr
+    m = (x & MASK32) * qinv & MASK32
+    r = (x >> 32) - ((m * q) >> 32)
+    r = torch.where(r < 0, r + q, r)
+    if peaks is not None:
+        for k, v in (("S", S), ("L", L), ("H", H)):
+            peaks[k] = max(peaks.get(k, 0), int(v.max()) if v.numel() else 0)
+    return r
+
+
+def ks_modup_model(c, tab: ModupTables, j0: int, j1: int,
+                   peaks: dict | None = None) -> torch.Tensor:
+    """ks_modup as the kernel computes it (`convert_digits_model` per
+    digit; a padded digit zero)."""
+    N = c.shape[-1]
+    out = torch.zeros((j1 - j0, tab.M, N), dtype=torch.int64,
+                      device=c.device)
+    dig = tab.dig.tolist()
+    for j in range(j0, min(j1, tab.J)):
+        first, cnt = dig[j]
+        y = torch.zeros((1, MAX_DIGIT, N), dtype=torch.int64, device=c.device)
+        y[0, :cnt] = c[first:first + cnt].long() * \
+            _widen(tab.dinv[j, :cnt]).reshape(-1, 1) % \
+            _widen(tab.dq[j, :cnt]).reshape(-1, 1)
+        out[j - j0] = convert_digits_model(y, tab.afrag[j], tab.bfold,
+                                           peaks=peaks)[0]
+    return out.to(torch.int32)
+
+
+def ks_moddown_model(d, tab: ModdownTables,
+                     peaks: dict | None = None) -> torch.Tensor:
+    """ks_moddown as the kernel computes it: the float32 v_hat of
+    `vhat_frac`, then `convert_digits_model` with the correction folded
+    in."""
+    K = tab.K
+    d3 = d if d.dim() == 3 else d[None]
+    y = d3.long() * _widen(tab.sinv).reshape(-1, 1) % \
+        _widen(tab.sp).reshape(-1, 1)                     # [B, K, N]
+    vhat = torch.round(vhat_frac(y.to(torch.float32), tab.inv_p, K)
+                       ).to(torch.int64)
+    pad = torch.zeros((y.shape[0], MAX_DIGIT - K, y.shape[-1]),
+                      dtype=torch.int64, device=y.device)
+    out = convert_digits_model(torch.cat([y, pad], 1), tab.afrag, tab.fold,
+                               vhat, peaks)
+    return out.reshape(d.shape[:-2] + out.shape[-2:]).to(torch.int32)
+
+
+def byte_extremes(primes, inv_w, pick) -> np.ndarray:
+    """Residues c int64 [rows, N] whose Shoup products y = c * inv_w mod q
+    have extreme bytes, the conversions' widest digit sums: pick [rows, N]
+    in {0, 1, 2} gives y = 0, y = q - 1 or the largest y < q whose three
+    low bytes are 0xFF; primes, inv_w [rows] (inv_w invertible mod q)."""
+    q = np.asarray([int(v) for v in primes], dtype=np.int64)[:, None]
+    w = np.asarray([pow(int(a), -1, int(b)) for a, b in zip(inv_w, primes)],
+                   dtype=np.int64)[:, None]
+    ff = ((q - 1) >> 24 << 24) | 0xFFFFFF
+    ff = np.where(ff < q, ff, ff - (1 << 24))
+    y = np.choose(np.asarray(pick), [np.zeros_like(q), q - 1, ff])
+    return y * w % q
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
@@ -275,8 +455,8 @@ def ks_modup(c, tab: ModupTables, j0: int, j1: int):
         return out
     err = _library().ks_modup_launch(
         c.data_ptr(), tab.dig.data_ptr(), tab.dq.data_ptr(),
-        tab.dinv.data_ptr(), tab.dinvsh.data_ptr(), tab.conv.data_ptr(),
-        tab.bq.data_ptr(), tab.bmu.data_ptr(), out.data_ptr(), j0, j1 - j0,
+        tab.dinv.data_ptr(), tab.dinvsh.data_ptr(), tab.afrag.data_ptr(),
+        tab.bfold.data_ptr(), out.data_ptr(), j0, j1 - j0,
         tab.J, tab.M, N, _stream(c))
     if err != 0:
         raise RuntimeError(f"ks_modup kernel launch failed: CUDA error {err}")
@@ -306,10 +486,8 @@ def ks_moddown(d, tab: ModdownTables):
         return out
     err = _library().ks_moddown_launch(
         d.data_ptr(), tab.sp.data_ptr(), tab.sinv.data_ptr(),
-        tab.sinvsh.data_ptr(), tab.inv_p.data_ptr(), tab.conv.data_ptr(),
-        tab.q.data_ptr(), tab.mu.data_ptr(), tab.pmod.data_ptr(),
-        tab.pmodsh.data_ptr(), out.data_ptr(), B, tab.K, tab.R, N,
-        _stream(d))
+        tab.sinvsh.data_ptr(), tab.inv_p.data_ptr(), tab.afrag.data_ptr(),
+        tab.fold.data_ptr(), out.data_ptr(), B, tab.K, tab.R, N, _stream(d))
     if err != 0:
         raise RuntimeError(f"ks_moddown kernel launch failed: CUDA error "
                            f"{err}")
@@ -365,8 +543,8 @@ def _library():
     lib = kernels.load("ks_legs")
     if lib.ks_modup_launch.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ks_modup_launch.argtypes = [P] * 9 + [I] * 5 + [P]
-        lib.ks_moddown_launch.argtypes = [P] * 11 + [I] * 4 + [P]
+        lib.ks_modup_launch.argtypes = [P] * 8 + [I] * 5 + [P]
+        lib.ks_moddown_launch.argtypes = [P] * 8 + [I] * 4 + [P]
         lib.sub_scale_launch.argtypes = [P, L, L, P, L, L, P, P] + \
             [I] * 3 + [P]
         for fn in (lib.ks_modup_launch, lib.ks_moddown_launch,

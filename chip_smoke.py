@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (aesfhe_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--mesh-only]
+    python3 chip_smoke.py [--mesh-only] [--legs-baseline PATH]
 
 Phases, each announced on its own line; any failure exits non-zero
-(`--mesh-only`: phases 1-3 and 9, e.g. on a machine with several cards):
+(`--mesh-only`: phases 1-3 and 9, e.g. on a machine with several cards;
+`--legs-baseline PATH`: the kernel phase also builds PATH, an earlier
+csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
+`legs_variants.compare`):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and which of nvcc, ninja and triton exist;
   2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
@@ -18,10 +21,11 @@ Phases, each announced on its own line; any failure exits non-zero
      rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
      view, DistNTT's [128, 55, 256], one row of 2^17, and the round
      trips; the key-switch legs (ks_modup, ks_moddown, sub_scale; their
-     ptxas registers) at levels 54, 28 and 24 and bench's widest switch,
-     ks_modup over the mesh's digit ranges (a padded last digit, a range
-     of padding only), ks_moddown on inputs at float32 half-integers of
-     v_hat's sum (K = 8 and 4), sub_scale on strided views;
+     ptxas registers and spills) at levels 54, 28 and 24 and bench's
+     widest switch, ks_modup over the mesh's digit ranges (a padded last
+     digit, a range of padding only), both conversions on byte-extreme
+     inputs (K = 8 and 4), ks_moddown on inputs at float32 half-integers
+     of v_hat's sum (K = 8 and 4), sub_scale on strided views;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -108,12 +112,13 @@ import time
 import numpy as np
 import torch
 
-from aesfhe_tpu_torch import (bench, bootstrap, kernels, run_full_aes,
-                              zeta_trace)
+from aesfhe_tpu_torch import (bench, bootstrap, kernels, legs_variants,
+                              run_full_aes, zeta_trace)
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
 from aesfhe_tpu_torch.core.params import get_params
+from aesfhe_tpu_torch.legs_variants import graph_ms
 from aesfhe_tpu_torch.ops.bitplane import BitState
 from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
 from aesfhe_tpu_torch.ops.zeta import phase_error, split_nibbles
@@ -179,28 +184,6 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean milliseconds per call of `reps` calls captured in one CUDA graph
-    and replayed (CUDA events): the kernels' time without the host's
-    enqueue cost, which exceeds a short kernel's."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(3):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
 
 
 zero_launches = kernels.zero_launches      # just before a main path runs
@@ -524,21 +507,24 @@ def half_integer_specials(params, level: int, B: int, rng, dev):
 
 def ks_legs_cases(params, rng, dev) -> list:
     """ks_modup, ks_moddown and sub_scale (csrc/ks_legs.cu; their ptxas
-    registers) against their plain versions at the main path's shapes: the
-    top level (J = 7 digits over M = 63 rows, two components), levels 28
-    and 24 (J = 4), bench's widest switch (level 15, K = 4); ks_modup over
-    the mesh's digit ranges at the top level for D = 2 and 4 (the last
-    digit padding) and over a range of padding only; ks_moddown on inputs
-    at float32 half-integers of v_hat's sum for K = 8 and K = 4; sub_scale
-    on strided views (a mod-down's q rows of [2, M, N], a rescale's first
-    l rows of [2, l+1, N])."""
+    registers and spills) against their plain versions at the main path's
+    shapes: the top level (J = 7 digits over M = 63 rows, two components),
+    levels 28 and 24 (J = 4), bench's widest switch (level 15, K = 4);
+    ks_modup over the mesh's digit ranges at the top level for D = 2 and 4
+    (the last digit padding) and over a range of padding only; both
+    conversions on byte-extreme inputs (every y = the largest residue with
+    three 0xFF bytes, and a per-word mix of that, q - 1 and 0) at the top
+    level and bench's; ks_moddown on inputs at float32 half-integers of
+    v_hat's sum for K = 8 and K = 4; sub_scale on strided views (a
+    mod-down's q rows of [2, M, N], a rescale's first l rows of
+    [2, l+1, N])."""
     log = kernels.BUILD_DIR / "ks_legs.ptxas.log"
     entry = None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "registers" in line and entry is not None:
-            print(f"ptxas {entry}: {line.split(':', 1)[1].strip()}",
+        elif ("registers" in line or "spill" in line) and entry is not None:
+            print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}",
                   flush=True)
     bp = bench.bench_params(BENCH_LOGN, BENCH_LEVELS)
     cases = []
@@ -548,10 +534,15 @@ def ks_legs_cases(params, rng, dev) -> list:
         x = rng.integers(0, 1 << 62, tuple(lead) + (len(rows), p.n))
         return torch.as_tensor(x % qs[:, None], device=dev).int()
 
-    def modup(p, level, tag, j0=0, j1=None):
+    def picks(rows, n, mixed):
+        return rng.integers(0, 3, (rows, n)) if mixed else \
+            np.full((rows, n), 2)
+
+    def modup(p, level, tag, j0=0, j1=None, c=None):
         tab = ks_legs.ModupTables(p, level, dev)
         j1 = tab.J if j1 is None else j1
-        c = residues(p, ops_impl._rows(p, level, False), ())
+        if c is None:
+            c = residues(p, ops_impl._rows(p, level, False), ())
         live = max(0, min(j1, tab.J) - j0)
         work = ks_legs.modup_work(sum(tab.dig[j0:j0 + live, 1].tolist()),
                                   j1 - j0, tab.M, p.n)
@@ -563,6 +554,17 @@ def ks_legs_cases(params, rng, dev) -> list:
             raise AssertionError("ks_modup: a padded digit is not zero")
         return out
 
+    def modup_extreme(p, level, mixed):
+        inv = [0] * (level + 1)
+        for g in p.ks_tables(level)["groups"]:
+            for i, w in zip(g["limbs"], g["inv_w"]):
+                inv[i] = w
+        c = ks_legs.byte_extremes(p.q_primes[:level + 1], inv,
+                                  picks(level + 1, p.n, mixed))
+        return modup(p, level, f"level {level} byte-extreme "
+                     f"{'mix' if mixed else '0xFF'}",
+                     c=torch.as_tensor(c, device=dev).int())
+
     def moddown(p, level, tag, d=None):
         tab = ks_legs.ModdownTables(p, level, dev)
         if d is None:
@@ -571,6 +573,15 @@ def ks_legs_cases(params, rng, dev) -> list:
         return legs_case("ks_moddown", f"{tag} K={tab.K}",
                          lambda: ks_legs.ks_moddown(d, tab),
                          lambda: ks_legs.ks_moddown_plain(d, tab), work)
+
+    def moddown_extreme(p, level, mixed):
+        K = p.num_special
+        d = np.stack([ks_legs.byte_extremes(
+            p.special_primes, p.md_tables(level)["inv_w"],
+            picks(K, p.n, mixed)) for _ in range(2)])
+        return moddown(p, level, f"level {level} byte-extreme "
+                       f"{'mix' if mixed else '0xFF'}",
+                       torch.as_tensor(d, device=dev).int())
 
     def sub_scale(p, level, tag, rows):
         wide = residues(p, range(rows), (2,))
@@ -605,6 +616,10 @@ def ks_legs_cases(params, rng, dev) -> list:
                          f"bench level {BENCH_LEVELS - 1} half-integer v_hat "
                          f"sums", half_integer_specials(
                              bp, BENCH_LEVELS - 1, 2, rng, dev)))
+    for p, level in ((params, top), (bp, BENCH_LEVELS - 1)):
+        for mixed in (False, True):
+            cases.append(modup_extreme(p, level, mixed))
+            cases.append(moddown_extreme(p, level, mixed))
     for level in (top, 28, 24):
         cases.append(sub_scale(params, level, f"mod-down level {level}",
                                level + 1 + K))
@@ -1098,7 +1113,10 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
 
 
 def main(argv=None) -> int:
-    mesh_only = "--mesh-only" in (sys.argv[1:] if argv is None else argv)
+    args = list(sys.argv[1:] if argv is None else argv)
+    mesh_only = "--mesh-only" in args
+    baseline = (args[args.index("--legs-baseline") + 1]
+                if "--legs-baseline" in args else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1145,6 +1163,8 @@ def main(argv=None) -> int:
                                BENCH_LEVELS - 1, None, rng, dev))
     ntt_shapes = ntt_cases(params, rng, dev)
     legs = ks_legs_cases(params, rng, dev)
+    if baseline is not None:
+        legs_variants.compare(baseline)
     torch.cuda.empty_cache()
     if mesh_only:
         phase("mesh")

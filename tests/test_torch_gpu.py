@@ -247,10 +247,12 @@ def _residues(p, rows, lead, rng, dev="cuda"):
 @pytest.mark.parametrize("level", [54, 28])
 def test_ks_legs_kernels_equal_plain(level):
     """ks_modup (every digit, a mesh rank's range with a padded digit, a
-    range of padding only), ks_moddown (random special rows, and rows whose
-    float32 v_hat sums sit at half-integers) and sub_scale (x a strided
-    view of the mod-down's wider input) equal their plain versions at
-    prod_boot's shapes."""
+    range of padding only; byte-extreme inputs), ks_moddown (random special
+    rows, rows whose float32 v_hat sums sit at half-integers, byte-extreme
+    rows) and sub_scale (x a strided view of the mod-down's wider input)
+    equal their plain versions at prod_boot's shapes.  Byte-extreme: every
+    y = c * inv_w mod q the largest residue with three 0xFF bytes, and a
+    per-word mix of that, q - 1 and 0 (`ks_legs.byte_extremes`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = get_params("prod_boot")
@@ -262,6 +264,18 @@ def test_ks_legs_kernels_equal_plain(level):
         got = ks_legs.ks_modup(c, up, j0, j1)
         assert ks_legs.launches_modup == before + 1
         assert torch.equal(got, ks_legs.ks_modup_plain(c, up, j0, j1))
+    inv = [0] * (level + 1)
+    for g in p.ks_tables(level)["groups"]:
+        for i, w in zip(g["limbs"], g["inv_w"]):
+            inv[i] = w
+    picks = (np.full((level + 1, p.n), 2),
+             rng.integers(0, 3, (level + 1, p.n)))
+    for pick in picks:
+        ce = torch.as_tensor(ks_legs.byte_extremes(p.q_primes[:level + 1],
+                                                   inv, pick),
+                             device="cuda").int()
+        assert torch.equal(ks_legs.ks_modup(ce, up, 0, up.J),
+                           ks_legs.ks_modup_plain(ce, up, 0, up.J))
     down = ks_legs.ModdownTables(p, level, "cuda")
     K, ps = p.num_special, np.asarray(p.special_primes, dtype=np.int64)
     y = rng.integers(0, 1 << 62, (2, K, p.n)) % ps[:, None]
@@ -272,7 +286,11 @@ def test_ks_legs_kernels_equal_plain(level):
          zip(p.md_tables(level)["inv_w"], ps)]
     half = torch.as_tensor((y * np.asarray(w)[:, None]) % ps[:, None],
                            device="cuda").int()
-    for d in (_residues(p, range(p.num_q, p.L_tot), (2,), rng), half):
+    extreme = torch.as_tensor(np.stack([ks_legs.byte_extremes(
+        ps, p.md_tables(level)["inv_w"], pick[:K]) for pick in picks]),
+        device="cuda").int()
+    for d in (_residues(p, range(p.num_q, p.L_tot), (2,), rng), half,
+              extreme):
         assert torch.equal(ks_legs.ks_moddown(d, down),
                            ks_legs.ks_moddown_plain(d, down))
     x = _residues(p, ops_impl._rows(p, level, True), (2,), rng)[:, :level + 1]

@@ -2,8 +2,10 @@
 ks_modup, ks_moddown, sub_scale) on the CPU, where each wrapper runs its
 plain version: exact (torch.equal) against the reference's ks_decompose,
 its padded digit tables, its fused mod-down (random inputs and inputs at
-float32 half-integers of the v_hat sum) and the epilogue's arithmetic; and
-the wrappers' argument checks.  The kernels themselves run on the card
+float32 half-integers of the v_hat sum) and the epilogue's arithmetic; the
+CPU model of the conversion kernels' digit arithmetic (u8 digit matrices,
+int32 products, the 32-bit fold) against the plain versions; and the
+wrappers' argument checks.  The kernels themselves run on the card
 (tests/test_torch_gpu.py, chip_smoke.py)."""
 import functools
 
@@ -18,7 +20,7 @@ from aesfhe_tpu.core.engine import Engine as JEngine
 from aesfhe_tpu.core.params import CKKSParams as JCKKSParams
 from aesfhe_tpu.core.params import get_params as jget_params
 from aesfhe_tpu.parallel.dist_keyswitch import _padded_digit_tables
-from aesfhe_tpu_torch import interop
+from aesfhe_tpu_torch import bench, interop
 from aesfhe_tpu_torch.core import ks_legs
 from aesfhe_tpu_torch.core import ops_impl as tops
 from aesfhe_tpu_torch.core.engine import Engine
@@ -196,12 +198,14 @@ def test_sub_scale_on_strided_views(view):
                                   "moddown shape", "moddown strides",
                                   "sub_scale dtype", "sub_scale shape",
                                   "sub_scale table", "sub_scale device",
-                                  "sub_scale last axis", "table digit size"])
+                                  "sub_scale last axis", "table digit size",
+                                  "fold even prime", "fold prime size"])
 def test_wrappers_raise(case):
     """Anything the kernels do not take raises, on the CPU as on the card:
     a dtype other than int32, a shape that does not match the tables, a
     tensor on another device than the tables, a layout the kernels do not
-    read, a digit too wide for the 64-bit accumulator."""
+    read, a digit too wide for the 64-bit accumulator, a prime the
+    kernels' 32-bit fold does not take."""
     _, tp, _ = _pair("tiny")
     level, N = 4, tp.n
     up = ks_legs.ModupTables(tp, level, "cpu")
@@ -236,6 +240,10 @@ def test_wrappers_raise(case):
         "table digit size": (ValueError,
                              lambda: ks_legs._check_sum("a digit",
                                                         [1 << 60] * 9)),
+        "fold even prime": (ValueError, lambda: ks_legs.digit_tables(
+            [[1]], [(1 << 20) + 2], [(1 << 20) + 7])),
+        "fold prime size": (ValueError, lambda: ks_legs.digit_tables(
+            [[1]], [(1 << 31) + 11], [(1 << 20) + 7])),
     }
     exc, call = calls[case]
     with pytest.raises(exc):
@@ -333,3 +341,93 @@ def test_named_ranges_and_their_split():
     assert split["ckks.ks_decompose"] == dict(self_s=12e-6, total_s=12e-6)
     assert split["ckks.rescale"] == dict(self_s=32e-6, total_s=32e-6)
     assert split["(outside the ranges)"]["self_s"] == pytest.approx(53e-6)
+
+
+# the kernels' main-path shapes: prod_boot's levels 54, 28 and 24 (K = 8,
+# digits of 8 limbs) and bench's widest switch (level 15, K = 4)
+MODEL_CASES = [("prod_boot", 54), ("prod_boot", 28), ("prod_boot", 24),
+               ("bench", 15)]
+
+
+@functools.lru_cache(maxsize=None)
+def _port_params(name):
+    return bench.bench_params(16, 16) if name == "bench" else \
+        get_params(name)
+
+
+def _extreme(primes, inv_w, kind, rng, n):
+    """Residues whose y = c inv_w mod q are random ("random"), the largest
+    residue with three 0xFF bytes everywhere ("0xFF"), or a per-word mix
+    of that, q - 1 and 0 ("mix")."""
+    if kind == "random":
+        q = np.asarray([int(v) for v in primes], dtype=np.int64)[:, None]
+        return rng.integers(0, 1 << 62, (len(primes), n)) % q
+    pick = np.full((len(primes), n), 2) if kind == "0xFF" else \
+        rng.integers(0, 3, (len(primes), n))
+    return ks_legs.byte_extremes(primes, inv_w, pick)
+
+
+@pytest.mark.parametrize("kind", ["random", "0xFF", "mix"])
+@pytest.mark.parametrize("name,level", MODEL_CASES)
+def test_digit_model_equals_plain(name, level, kind):
+    """The CPU model of the conversion kernels (the digit matrices A_e as
+    the kernels read them, the bytes of y, S_e as int32 products, the
+    32-bit fold) is torch.equal to ks_modup_plain (every digit, and a mesh
+    range [J - 1, J + 1) whose last digit is padding) and to
+    ks_moddown_plain (one component and two) at N = 2^9, on random inputs
+    and on inputs that maximise every byte; S_e < 2^21 and L, H < 2^30."""
+    p = _port_params(name)
+    rng = np.random.default_rng(level)
+    n = 1 << 9
+    up = ks_legs.ModupTables(p, level, "cpu")
+    inv = [0] * (level + 1)
+    for g in p.ks_tables(level)["groups"]:
+        for i, w in zip(g["limbs"], g["inv_w"]):
+            inv[i] = w
+    c = torch.as_tensor(_extreme(p.q_primes[:level + 1], inv, kind, rng,
+                                 n)).to(torch.int32)
+    peaks = {}
+    for j0, j1 in ((0, up.J), (up.J - 1, up.J + 1)):
+        got = ks_legs.ks_modup_model(c, up, j0, j1, peaks)
+        assert torch.equal(got, ks_legs.ks_modup_plain(c, up, j0, j1))
+    assert not got[1:].any()
+    down = ks_legs.ModdownTables(p, level, "cpu")
+    d = torch.as_tensor(np.stack([_extreme(
+        p.special_primes, p.md_tables(level)["inv_w"], kind, rng, n)
+        for _ in range(2)])).to(torch.int32)
+    for x in (d, d[0]):
+        assert torch.equal(ks_legs.ks_moddown_model(x, down, peaks),
+                           ks_legs.ks_moddown_plain(x, down))
+    assert peaks["S"] < 1 << 21
+    assert max(peaks["L"], peaks["H"]) < 1 << 30
+
+
+def test_digit_tables_fragment_order():
+    """digit_tables stores A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32
+    mod q_m) (Python integers) in mma.sync m16n8k32's A-fragment order for
+    .u8: lane l's register r holds row l/4 (+8 for r odd) and the bytes
+    k = 4(l%4) .. 4(l%4)+3 (+16 for r >= 2), lowest k in the lowest byte;
+    rows past M and limbs past A are zero."""
+    p = _port_params("prod_boot")
+    level = 28
+    mdt = p.md_tables(level)
+    qs = [int(q) for q in p.q_primes[:level + 1]]
+    conv = np.asarray(mdt["conv_w"], dtype=np.int64)[:5]        # A = 5
+    frag = ks_legs.digit_tables(conv, qs, p.special_primes[:5])
+    MT = frag.shape[0]
+    assert frag.shape == (-(-len(qs) // 16), 4, 32, 4)
+    words = frag.astype(np.int64) & 0xFFFFFFFF
+    for mt in range(MT):
+        for e in range(4):
+            for lane in range(32):
+                for r in range(4):
+                    row = 16 * mt + lane // 4 + 8 * (r % 2)
+                    k0 = 4 * (lane % 4) + 16 * (r // 2)
+                    want = 0
+                    for i in range(4):
+                        a, s_ = divmod(k0 + i, 4)
+                        if row < len(qs) and a < conv.shape[0]:
+                            v = int(conv[a, row]) * 256 ** s_ * (1 << 32) \
+                                % qs[row]
+                            want |= ((v >> 8 * e) & 255) << 8 * i
+                    assert words[mt, e, lane, r] == want
