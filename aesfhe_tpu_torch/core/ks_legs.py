@@ -19,26 +19,34 @@ mod-down and every rescale.  Every input and output is int32 holding
 canonical residues; the tables are built once per level (`ModupTables`,
 `ModdownTables`, `scale_table`) and uploaded with the caller's
 DeviceTables.  The plain versions compute the kernels' arithmetic in int64
-on any device: the conversions sum their products lazily and reduce once,
-which is exact because a digit (or the special set) has at most
-`MAX_DIGIT` primes of at most 30 bits, so every sum stays below 2^63 (the
-tables raise otherwise).
+on any device: the conversions sum their products lazily and reduce
+whenever the sum's bound, taken from the actual primes, would pass
+2^63 - 1 (8 terms of 30-bit primes, fewer of 31-bit ones), so a digit or
+a special set of any size and any prime below 2^31 is exact.
 
 The kernels compute the conversions as exact u8 x u8 -> s32 tensor-core
-products instead (the byte scheme of the reference's `core/mxu_ntt.py`):
-with k = 4a + s over limb a and byte s of y_a, the digit matrices
+products instead (the byte scheme of the reference's `core/mxu_ntt.py`),
+in chunks of `CHUNK` = 8 primes, one mma k-step each: with k = 4a + s
+over limb a of the chunk and byte s of y_a, the digit matrices
 A_e[m, k] = byte_e(conv_w[a, m] 256^s 2^32 mod q_m) give
 S_e = sum_k A_e[m, k] byte_s(y_a) < 2^21, and
 sum_a y_a conv_w[a, m] = (L + 2^16 H) 2^-32 mod q_m with L = S_0 + 2^8 S_1
-and H = S_2 + 2^8 S_3 both below 2^30: one Montgomery step
-(`digit_tables` builds A_e in the mma's fragment order, `fold_table` the
-fold's constants).  `convert_digits_model` computes that arithmetic on the
-CPU, step by step, and `ks_modup_model`/`ks_moddown_model` wrap it as the
+and H = S_2 + 2^8 S_3 both below 2^30: one Montgomery step a chunk, the
+chunks' canonical partials added mod q_m (`digit_tables` builds A_e in the
+mma's fragment order, `fold_table` the fold's constants).  A wider digit
+or special set is ceil(width / 8) chunks; the mod-down's v_hat is
+computed once over all K special primes and enters the first chunk's
+fold only.  `convert_digits_model` computes that arithmetic on the CPU,
+step by step, and `ks_modup_model`/`ks_moddown_model` wrap it as the
 kernels do.
 
-On a CPU tensor each wrapper computes the plain version; on a CUDA tensor
-it launches its kernel or raises.  `launches_modup`, `launches_moddown`
-and `launches_sub_scale` count the launches.
+The kernel-only tables (the digit matrices and the fold's constants) are
+built, and their limits checked, only for tables on a CUDA device
+(`kernel_tables`, which the CPU model calls itself).  On a CPU tensor
+each wrapper computes the plain version; on a CUDA tensor it launches its
+kernel or raises.  `launches_modup`, `launches_moddown` and
+`launches_sub_scale` count the launches, `launches_modup_chunks` and
+`launches_moddown_chunks` those of the chunked instances among them.
 """
 from __future__ import annotations
 
@@ -53,7 +61,13 @@ from .rns import MASK32
 launches_modup = 0
 launches_moddown = 0
 launches_sub_scale = 0
-MAX_DIGIT = 8            # the kernels' largest digit / special set (kMaxDigit)
+# of those, the launches of the chunked instances (more than CHUNK primes)
+launches_modup_chunks = 0
+launches_moddown_chunks = 0
+CHUNK = 8                # primes a conversion kernel takes in one k-step
+# float32 lanes of the vector loop in which XLA:CPU sums the reference's
+# v_hat over K = 8 and K >= 16 (256-bit vectors; `vhat_frac`)
+XLA_LANES = 8
 # mma.sync.m16n8k32's A fragment: lane l's register r holds the 4 bytes
 # k = 4c .. 4c+3 of row FRAG_ROW[l, r] of a 16-row tile, c = FRAG_WORD[l, r]
 # (the PTX ISA's layout for .u8: row = l/4 (+8 for r odd), c = l%4 (+4 for
@@ -76,57 +90,90 @@ def _shoup(ws, qs) -> np.ndarray:
 
 
 def _check_sum(what: str, terms) -> None:
-    """Raise unless a lazy sum of the products (q_a - 1) * (q_m - 1) stays
-    below 2^63."""
-    if len(terms) > MAX_DIGIT:
-        raise ValueError(f"{what}: {len(terms)} primes, the kernels take at "
-                         f"most {MAX_DIGIT}")
+    """Raise unless a lazy int64 sum of terms (the largest values of its
+    products and of the residue it starts from) stays below 2^63."""
     if sum(terms) >= 1 << 63:
         raise ValueError(f"{what}: the 64-bit accumulator could overflow")
 
 
-def digit_tables(conv, qs, in_primes) -> np.ndarray:
-    """The u8 digit matrices of a conversion out[m] = sum_a y_a conv[a, m]
-    mod qs[m], y_a < in_primes[a], in mma.sync m16n8k32's A-fragment order:
-    conv [..., A, M] (A <= MAX_DIGIT) -> int32 [..., MT, 4, 32, 4]
-    (MT = ceil(M / 16) row tiles, digit e, lane, register; uint32 bits),
-    A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32 mod q_m), zero past A
-    limbs and M rows (the factor 2^32 cancels the fold's Montgomery step).
-    Raises unless the kernels' fold is exact: odd primes between 2^15 and
-    2^31 and, for the largest bytes the inputs can have, S_e < 2^21 and
-    L = S_0 + 2^8 S_1, H = S_2 + 2^8 S_3 below 2^30."""
+def lazy_reductions(what: str, terms, rest: int) -> list[int]:
+    """Where a lazy int64 sum of products must be reduced: terms[a] is the
+    largest value of product a, rest the largest residue a reduction leaves.
+    Returns the indices a before which the sum is reduced, so that every
+    run of the sum stays below 2^63 (`_check_sum`)."""
+    cuts, run = [], []
+    for a, t in enumerate(terms):
+        if run and sum(run) + t >= 1 << 63:
+            cuts.append(a)
+            run = [rest]
+        run.append(t)
+        _check_sum(what, run)
+    return cuts
+
+
+def digit_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
+    """The u8 digit matrices of one chunk of a conversion out[m] =
+    sum_a y_a conv[a, m] mod qs[m], y_a < in_primes[a], in mma.sync
+    m16n8k32's A-fragment order: conv [..., A, M] (A <= CHUNK) -> int32
+    [..., MT, 4, 32, 4] (MT = ceil(M / 16) row tiles, digit e, lane,
+    register; uint32 bits), A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32
+    mod q_m), zero past A limbs and M rows (the factor 2^32 cancels the
+    fold's Montgomery step).  Raises unless the kernels' fold is exact for
+    the largest bytes the inputs can have: S_e < 2^21, L = S_0 + 2^8 S_1
+    and H = S_2 + 2^8 S_3 below 2^30, odd primes below 2^31, and the
+    Montgomery step's x = L + 2^16 H + v corr (v <= vmax, corr < q) with
+    floor(x / 2^32) < q, which leaves r in (-q, q): canonical after one
+    conditional addition.  Above 2^15 that holds as x < 2^47; a prime below
+    2^16 has zero bytes 2 and 3 in A, so H = 0 and x < 2^32."""
     conv = np.asarray(conv, dtype=np.int64)
     *lead, A, M = conv.shape
     q = np.asarray(qs, dtype=np.int64)
     pin = np.asarray(in_primes, dtype=np.int64)
-    if A > MAX_DIGIT or len(pin) != A:
+    if A > CHUNK or len(pin) != A:
         raise ValueError(f"digit_tables: {A} limbs for {len(pin)} primes, "
-                         f"at most {MAX_DIGIT}")
-    if np.any(q % 2 == 0) or q.min() <= 1 << 15 or q.max() >= 1 << 31 or \
+                         f"at most {CHUNK}")
+    if np.any(q % 2 == 0) or q.min() < 3 or q.max() >= 1 << 31 or \
             pin.max() >= 1 << 31:
-        raise ValueError("digit_tables: the fold needs odd primes between "
-                         "2^15 and 2^31")
+        raise ValueError("digit_tables: the fold needs odd primes below "
+                         "2^31")
     MT = -(-M // 16)
     pw = np.asarray([[pow(256, s, int(qm)) * (1 << 32) % int(qm)
                       for qm in q] for s in range(4)])
     val = conv[..., :, None, :] % q * pw % q              # [..., A, s, M]
     e8 = 8 * np.arange(4)
     byte = (val[..., None] >> e8) & 255                   # [..., A, s, M, e]
-    ae = np.zeros(tuple(lead) + (4, 16 * MT, MAX_DIGIT, 4), dtype=np.uint8)
+    ae = np.zeros(tuple(lead) + (4, 16 * MT, CHUNK, 4), dtype=np.uint8)
     ae[..., :M, :A, :] = np.moveaxis(byte, (-1, -2), (-4, -3))
     # the largest byte s of a residue below each input prime
-    top = np.zeros((MAX_DIGIT, 4), dtype=np.int64)
+    top = np.zeros((CHUNK, 4), dtype=np.int64)
     top[:A] = np.minimum((pin[:, None] - 1) >> e8, 255)
     peak = (ae.astype(np.int64) * top).sum((-2, -1))      # [..., e, row]
     low = peak[..., 0, :] + (peak[..., 1, :] << 8)
     high = peak[..., 2, :] + (peak[..., 3, :] << 8)
-    if peak.max() >= 1 << 21 or max(low.max(), high.max()) >= 1 << 30:
+    qrow = np.zeros(16 * MT, dtype=np.int64)
+    qrow[:M] = q
+    qrow[M:] = q[-1]
+    xmax = low + (high << 16) + vmax * (qrow - 1)
+    if peak.max() >= 1 << 21 or max(low.max(), high.max()) >= 1 << 30 or \
+            np.any((xmax >> 32) >= qrow):
         raise ValueError("digit_tables: a digit product could overflow the "
                          "32-bit fold")
     words = np.ascontiguousarray(ae).view("<u4")[..., 0]   # [..., e, row, a]
-    words = words.reshape(tuple(lead) + (4, MT, 16, MAX_DIGIT))
+    words = words.reshape(tuple(lead) + (4, MT, 16, CHUNK))
     frag = words[..., FRAG_ROW, FRAG_WORD]                # [..., e, MT, l, r]
     return _bits32(np.moveaxis(frag, -4, -3))
+
+
+def chunked_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
+    """`digit_tables` of each chunk of CHUNK limbs: conv [A, M] ->
+    int32 [ceil(A / CHUNK), MT, 4, 32, 4]; in_primes [A] (a limb past the
+    digit's has prime 1: no input, zero bytes)."""
+    conv = np.asarray(conv, dtype=np.int64)
+    pin = np.asarray(in_primes, dtype=np.int64)
+    nch = -(-conv.shape[0] // CHUNK)
+    return np.stack([digit_tables(conv[c * CHUNK:(c + 1) * CHUNK], qs,
+                                  pin[c * CHUNK:(c + 1) * CHUNK], vmax)
+                     for c in range(nch)])
 
 
 def fold_table(qs, corr=None) -> np.ndarray:
@@ -147,21 +194,26 @@ class ModupTables:
     """ks_modup's constants of one level on one device (int32 tensors of
     uint32 bits): per active digit its first limb and limb count `dig`
     [J, 2], its limbs' primes `dq`, inv_w `dinv` and their Shoup companions
-    `dinvsh` [J, MAX_DIGIT], conv_w `conv` [J, MAX_DIGIT, M] (the plain
-    version's) and its digit matrices `afrag` [J, MT, 4, 32, 4]
-    (`digit_tables`, the kernel's); the basis primes `bq` [M] and the
-    fold's constants `bfold` [3, M] (`fold_table`)."""
+    `dinvsh` [J, W], conv_w `conv` [J, W, M] (W = nch * CHUNK, nch the
+    widest digit's chunks; zero past a digit's limbs) and the basis primes
+    `bq` [M]; `cuts[j]`, the limbs before which the plain version reduces
+    its lazy sum.  On a CUDA device also the kernel's `kernel_tables()`:
+    the digit matrices `afrag` [J, nch, MT, 4, 32, 4] (`chunked_tables`)
+    and the fold's constants `bfold` [3, M] (`fold_table`); else None."""
 
     def __init__(self, params, level: int, device):
         kst = params.ks_tables(level)
         groups = kst["groups"]
         basis = [int(q) for q in kst["basis"]]
         J, M = len(groups), len(basis)
+        nch = max(-(-len(g["limbs"]) // CHUNK) for g in groups)
+        W = nch * CHUNK
         dig = np.zeros((J, 2), dtype=np.int32)
-        dq = np.zeros((J, MAX_DIGIT), dtype=np.uint64)
-        dinv = np.zeros((J, MAX_DIGIT), dtype=np.uint64)
-        dinvsh = np.zeros((J, MAX_DIGIT), dtype=np.uint64)
-        conv = np.zeros((J, MAX_DIGIT, M), dtype=np.uint64)
+        dq = np.zeros((J, W), dtype=np.uint64)
+        dinv = np.zeros((J, W), dtype=np.uint64)
+        dinvsh = np.zeros((J, W), dtype=np.uint64)
+        conv = np.zeros((J, W, M), dtype=np.uint64)
+        self.cuts = []
         for j, g in enumerate(groups):
             limbs = list(g["limbs"])
             a = len(limbs)
@@ -169,17 +221,15 @@ class ModupTables:
                 raise ValueError(f"ks_modup: digit {j} at level {level} is "
                                  f"not a contiguous limb range")
             qa = [int(params.q_primes[i]) for i in limbs]
-            _check_sum(f"ks_modup digit {j} at level {level}",
-                       [(q - 1) * (max(basis) - 1) for q in qa])
+            self.cuts.append(lazy_reductions(
+                f"ks_modup digit {j} at level {level}",
+                [(q - 1) * (max(basis) - 1) for q in qa], max(basis) - 1))
             dig[j] = (limbs[0], a)
             dq[j, :a] = qa
             dinv[j, :a] = g["inv_w"]
             dinvsh[j, :a] = g["inv_sh"]
             conv[j, :a] = g["conv_w"]
-        # a digit's unused limbs have prime 0 here: no input, zero bytes
-        afrag = np.stack([digit_tables(conv[j], basis, np.maximum(dq[j], 1))
-                          for j in range(J)])
-        self.level, self.J, self.M = level, J, M
+        self.level, self.J, self.M, self.nch = level, J, M, nch
 
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -187,27 +237,42 @@ class ModupTables:
         self.dig = up(dig)
         self.dq, self.dinv, self.dinvsh, self.conv, self.bq = (
             up(_bits32(a)) for a in (dq, dinv, dinvsh, conv, basis))
-        self.afrag = up(afrag)
-        self.bfold = up(fold_table(basis))
+        self.afrag = self.bfold = None
+        if torch.device(device).type == "cuda":
+            self.afrag, self.bfold = self.kernel_tables()
+
+    def kernel_tables(self):
+        """(afrag, bfold) on the tables' device, from their constants."""
+        conv, dq, basis = (_widen(t).cpu().numpy()
+                           for t in (self.conv, self.dq, self.bq))
+        # a digit's unused limbs have prime 0 here: no input, zero bytes
+        afrag = np.stack([chunked_tables(conv[j], basis, np.maximum(dq[j], 1))
+                          for j in range(self.J)])
+        return (torch.from_numpy(afrag).to(self.bq.device),
+                torch.from_numpy(fold_table(basis)).to(self.bq.device))
 
 
 class ModdownTables:
     """ks_moddown's constants of one level on one device: the special
     primes `sp`, inv_w `sinv` and Shoup companions `sinvsh` [K], 1/p_i
-    `inv_p` (float32) [K], conv_w `conv` [K, R] (the plain version's) and
-    its digit matrices `afrag` [MT, 4, 32, 4] (the kernel's), the q primes
-    `q` and P mod q `pmod` [R] (the plain version's), the fold's constants
-    `fold` [3, R] with the correction factor -P 2^32 mod q (the kernel's);
-    and `pinv`, sub_scale's table of P^-1 mod q (R = l+1)."""
+    `inv_p` (float32) [K], conv_w `conv` [K, R], the q primes `q` and
+    P mod q `pmod` [R] and `cuts`, the rows before which the plain version
+    reduces its lazy sum; `pinv`, sub_scale's table of P^-1 mod q
+    (R = l+1).  On a CUDA device also the kernel's `kernel_tables()`:
+    conv_w's digit matrices `afrag` [nch, MT, 4, 32, 4] (nch = ceil(K /
+    CHUNK)) and the fold's constants `fold` [3, R] with the correction
+    factor -P 2^32 mod q; else None."""
 
     def __init__(self, params, level: int, device):
         mdt = params.md_tables(level)
         sp = [int(p) for p in params.special_primes]
         qs = [int(q) for q in params.q_primes[:level + 1]]
         K, R = len(sp), len(qs)
-        _check_sum(f"ks_moddown at level {level}",
-                   [(p - 1) * (max(qs) - 1) for p in sp])
+        self.cuts = lazy_reductions(f"ks_moddown at level {level}",
+                                    [(p - 1) * (max(qs) - 1) for p in sp],
+                                    max(qs) - 1)
         self.level, self.K, self.R = level, K, R
+        self.nch = -(-K // CHUNK)
 
         def up(a, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
@@ -217,10 +282,19 @@ class ModdownTables:
                                      mdt["conv_w"], qs, mdt["pmod_w"]))
         self.inv_p = up((1.0 / np.asarray(sp, dtype=np.float64))
                         .astype(np.float32))
-        self.afrag = up(digit_tables(mdt["conv_w"], qs, sp))
-        self.fold = up(fold_table(qs, [(-int(pm) << 32) % q for pm, q in
-                                       zip(mdt["pmod_w"], qs)]))
         self.pinv = up(scale_table(qs, mdt["pinv_w"]))
+        self.afrag = self.fold = None
+        if torch.device(device).type == "cuda":
+            self.afrag, self.fold = self.kernel_tables()
+
+    def kernel_tables(self):
+        """(afrag, fold) on the tables' device, from their constants."""
+        conv, qs, sp, pmod = (_widen(t).cpu().numpy().tolist() for t in
+                              (self.conv, self.q, self.sp, self.pmod))
+        afrag = chunked_tables(conv, qs, sp, self.K)
+        fold = fold_table(qs, [(-pm << 32) % q for pm, q in zip(pmod, qs)])
+        return (torch.from_numpy(afrag).to(self.q.device),
+                torch.from_numpy(fold).to(self.q.device))
 
 
 def scale_table(qs, ws) -> np.ndarray:
@@ -249,6 +323,8 @@ def ks_modup_plain(c, tab: ModupTables, j0: int, j1: int) -> torch.Tensor:
         first, cnt = dig[j]
         acc = out[j - j0]
         for a in range(cnt):
+            if a in tab.cuts[j]:
+                acc.remainder_(bq)
             y = c[first + a].long() * _widen(tab.dinv[j, a]) \
                 % _widen(tab.dq[j, a])
             acc += y[None, :] * _widen(tab.conv[j, a]).reshape(-1, 1)
@@ -256,29 +332,40 @@ def ks_modup_plain(c, tab: ModupTables, j0: int, j1: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def _fma(a, b, c):
+    """float32 a * b + c rounded once (the float64 product of two float32
+    values is exact; the float64 sum rounds only for a product far below
+    the sum, where a double rounding needs ~29 particular bits)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def vhat_frac(yf, inv_p, K: int):
     """sum_i yf_i * inv_p_i in float32 over the K special rows of yf
-    [..., K, N], in XLA:CPU's order for the reference's jnp.sum: K = 8 as
-    one 8-lane vector, each product rounded, then halves added
-    (t_i + t_{i+4}, then + t_{i+2}, then + t_{i+1}); any other K as a
-    fused multiply-add chain acc = fma(yf_i, inv_p_i, acc) from 0, each
-    step rounded once (the float64 product of two float32 values is exact;
-    the float64 sum rounds only for a product far below the sum, where a
-    double rounding needs ~29 particular bits).  Orders differ only where
-    the sum falls within a float32 ulp of a half-integer: v_hat then
-    differs by one, and the result by one unit in that coefficient
-    (ROADMAP queue 3)."""
-    if K == 8:
-        t = [yf[..., i:i + 1, :] * inv_p[i] for i in range(K)]
-        while len(t) > 1:
-            h = len(t) // 2
-            t = [t[i] + t[i + h] for i in range(h)]
-        return t[0]
-    inv = inv_p.double()
-    acc = torch.zeros_like(yf[..., 0:1, :], dtype=torch.float64)
-    for i in range(K):
-        acc = (yf[..., i:i + 1, :].double() * inv[i] + acc).float().double()
-    return acc.float()
+    [..., K, N], in XLA:CPU's order for the reference's jnp.sum (its loop
+    over K, as LLVM vectorizes it at 8 float32 lanes): for K = 8 and
+    K >= 16 lane l < 8 holds u_l = yf_l inv_p_l rounded, then
+    u_l = fma(yf_{8c+l}, inv_p_{8c+l}, u_l) for c = 1 .. K//8 - 1; the
+    lanes are added in halves (u_l + u_{l+4}, then + u_{l+2}, then
+    + u_{l+1}), and the K % 8 rows left follow as a fused multiply-add
+    chain from that sum.  Any other K (1-7, 9-15) is one fused
+    multiply-add chain acc = fma(yf_i, inv_p_i, acc) from 0, each step
+    rounded once.  Orders differ only where the sum falls within a float32
+    ulp of a half-integer: v_hat then differs by one, and the result by
+    one unit in that coefficient (ROADMAP queue 3)."""
+    acc = torch.zeros_like(yf[..., 0:1, :])
+    rows = range(K)
+    lanes = XLA_LANES
+    if K == lanes or K >= 2 * lanes:
+        u = [yf[..., i:i + 1, :] * inv_p[i] for i in range(lanes)]
+        for i in range(lanes, K // lanes * lanes):
+            u[i % lanes] = _fma(yf[..., i:i + 1, :], inv_p[i], u[i % lanes])
+        while len(u) > 1:
+            h = len(u) // 2
+            u = [u[i] + u[i + h] for i in range(h)]
+        acc, rows = u[0], range(K // lanes * lanes, K)
+    for i in rows:
+        acc = _fma(yf[..., i:i + 1, :], inv_p[i], acc)
+    return acc
 
 
 def ks_moddown_plain(d, tab: ModdownTables) -> torch.Tensor:
@@ -289,6 +376,8 @@ def ks_moddown_plain(d, tab: ModdownTables) -> torch.Tensor:
     conv = _widen(tab.conv)
     acc = None
     for i in range(K):
+        if i in tab.cuts:
+            acc.remainder_(qv)
         t = y[..., i:i + 1, :] * conv[i].reshape(-1, 1)
         acc = t if acc is None else acc.add_(t)
     acc.remainder_(qv)
@@ -313,64 +402,76 @@ def sub_scale_plain(x, y, tab) -> torch.Tensor:
 
 def _digit_matrices(afrag: torch.Tensor) -> torch.Tensor:
     """afrag int32 [..., MT, 4, 32, 4] (`digit_tables`) -> the u8 matrices
-    A_e as int32 [..., 4, 16 MT, 4 MAX_DIGIT] (e, row, k = 4a + s)."""
+    A_e as int32 [..., 4, 16 MT, 4 CHUNK] (e, row, k = 4a + s)."""
     f = _widen(afrag).movedim(-3, -4)                     # [..., e, MT, l, r]
     *lead, MT = f.shape[:-2]
-    words = torch.empty(tuple(lead) + (MT, 16, MAX_DIGIT), dtype=torch.int64,
+    words = torch.empty(tuple(lead) + (MT, 16, CHUNK), dtype=torch.int64,
                         device=f.device)
     words[..., torch.as_tensor(FRAG_ROW), torch.as_tensor(FRAG_WORD)] = f
     shifts = 8 * torch.arange(4, device=f.device)
     byte = (words[..., None] >> shifts) & 255             # [..., MT, 16, a, s]
-    return byte.reshape(tuple(lead) + (16 * MT, 4 * MAX_DIGIT)).to(
+    return byte.reshape(tuple(lead) + (16 * MT, 4 * CHUNK)).to(
         torch.int32)
 
 
 def convert_digits_model(y, afrag, fold, vhat=None,
                          peaks: dict | None = None):
-    """The kernels' conversion: y int64 [B, MAX_DIGIT, N] (values below
-    2^32; zero past the digit's limbs), afrag [MT, 4, 32, 4], fold [3, M],
-    vhat (ks_moddown's v_hat, int64 [B, 1, N]) -> int64 [B, M, N]
-    canonical, computed as the kernels do: the bytes B[4a + s] =
-    byte_s(y_a), S_e = A_e @ B as int32 products, L = S_0 + (S_1 << 8),
-    H = S_2 + (S_3 << 8), x = L + 2^16 H (+ vhat corr), then the Montgomery
-    step m = x_lo q^-1 mod 2^32, r = x_hi - hi(m q), plus q if negative.
-    `peaks` (if given) gets the largest S_e, L and H."""
-    A = _digit_matrices(afrag)                            # [4, Mp, 32]
+    """The kernels' conversion: y int64 [B, nch * CHUNK, N] (values below
+    2^32; zero past the digit's limbs), afrag [nch, MT, 4, 32, 4], fold
+    [3, M], vhat (ks_moddown's v_hat, int64 [B, 1, N]) -> int64 [B, M, N]
+    canonical, computed as the kernels do, chunk by chunk: the bytes
+    B[4a + s] = byte_s(y_a) of the chunk's limbs, S_e = A_e @ B as int32
+    products, L = S_0 + (S_1 << 8), H = S_2 + (S_3 << 8),
+    x = L + 2^16 H (+ vhat corr in the first chunk), then the Montgomery
+    step m = x_lo q^-1 mod 2^32, r = x_hi - hi(m q), plus q if negative;
+    the chunks' partials added mod q.  `peaks` (if given) gets the largest
+    S_e, L, H and x_hi - q (negative: the fold is canonical)."""
     Bn, _, N = y.shape
-    shifts = (8 * torch.arange(4, device=y.device)).reshape(1, 1, 4, 1)
-    b = ((y[:, :, None, :] >> shifts) & 255).reshape(Bn, 4 * MAX_DIGIT, N)
     M = fold.shape[1]
-    S = (A[:, None] @ b.to(torch.int32)[None])[:, :, :M].long()
-    L = S[0] + (S[1] << 8)
-    H = S[2] + (S[3] << 8)
     q, qinv, corr = (_widen(fold[i]).reshape(-1, 1) for i in range(3))
-    x = L + (H << 16)
-    if vhat is not None:
-        x = x + vhat * corr
-    m = (x & MASK32) * qinv & MASK32
-    r = (x >> 32) - ((m * q) >> 32)
-    r = torch.where(r < 0, r + q, r)
-    if peaks is not None:
-        for k, v in (("S", S), ("L", L), ("H", H)):
-            peaks[k] = max(peaks.get(k, 0), int(v.max()) if v.numel() else 0)
-    return r
+    shifts = (8 * torch.arange(4, device=y.device)).reshape(1, 1, 4, 1)
+    out = None
+    for c in range(afrag.shape[0]):
+        A = _digit_matrices(afrag[c])                     # [4, Mp, 32]
+        yc = y[:, c * CHUNK:(c + 1) * CHUNK]
+        b = ((yc[:, :, None, :] >> shifts) & 255).reshape(Bn, 4 * CHUNK, N)
+        S = (A[:, None] @ b.to(torch.int32)[None])[:, :, :M].long()
+        L = S[0] + (S[1] << 8)
+        H = S[2] + (S[3] << 8)
+        x = L + (H << 16)
+        if vhat is not None and c == 0:
+            x = x + vhat * corr
+        m = (x & MASK32) * qinv & MASK32
+        r = (x >> 32) - ((m * q) >> 32)
+        r = torch.where(r < 0, r + q, r)
+        out = r if out is None else torch.where(out + r >= q, out + r - q,
+                                                out + r)
+        if peaks is not None:
+            for k, v in (("S", S), ("L", L), ("H", H),
+                         ("xq", (x >> 32) - q)):
+                peaks[k] = max(peaks.get(k, -1 << 62),
+                               int(v.max()) if v.numel() else 0)
+    return out
 
 
 def ks_modup_model(c, tab: ModupTables, j0: int, j1: int,
                    peaks: dict | None = None) -> torch.Tensor:
     """ks_modup as the kernel computes it (`convert_digits_model` per
     digit; a padded digit zero)."""
+    afrag, bfold = tab.kernel_tables() if tab.afrag is None else \
+        (tab.afrag, tab.bfold)
     N = c.shape[-1]
     out = torch.zeros((j1 - j0, tab.M, N), dtype=torch.int64,
                       device=c.device)
     dig = tab.dig.tolist()
     for j in range(j0, min(j1, tab.J)):
         first, cnt = dig[j]
-        y = torch.zeros((1, MAX_DIGIT, N), dtype=torch.int64, device=c.device)
+        y = torch.zeros((1, tab.nch * CHUNK, N), dtype=torch.int64,
+                        device=c.device)
         y[0, :cnt] = c[first:first + cnt].long() * \
             _widen(tab.dinv[j, :cnt]).reshape(-1, 1) % \
             _widen(tab.dq[j, :cnt]).reshape(-1, 1)
-        out[j - j0] = convert_digits_model(y, tab.afrag[j], tab.bfold,
+        out[j - j0] = convert_digits_model(y, afrag[j], bfold,
                                            peaks=peaks)[0]
     return out.to(torch.int32)
 
@@ -378,17 +479,19 @@ def ks_modup_model(c, tab: ModupTables, j0: int, j1: int,
 def ks_moddown_model(d, tab: ModdownTables,
                      peaks: dict | None = None) -> torch.Tensor:
     """ks_moddown as the kernel computes it: the float32 v_hat of
-    `vhat_frac`, then `convert_digits_model` with the correction folded
-    in."""
+    `vhat_frac` over all K rows, then `convert_digits_model` with the
+    correction folded into the first chunk."""
+    afrag, fold = tab.kernel_tables() if tab.afrag is None else \
+        (tab.afrag, tab.fold)
     K = tab.K
     d3 = d if d.dim() == 3 else d[None]
     y = d3.long() * _widen(tab.sinv).reshape(-1, 1) % \
         _widen(tab.sp).reshape(-1, 1)                     # [B, K, N]
     vhat = torch.round(vhat_frac(y.to(torch.float32), tab.inv_p, K)
                        ).to(torch.int64)
-    pad = torch.zeros((y.shape[0], MAX_DIGIT - K, y.shape[-1]),
+    pad = torch.zeros((y.shape[0], tab.nch * CHUNK - K, y.shape[-1]),
                       dtype=torch.int64, device=y.device)
-    out = convert_digits_model(torch.cat([y, pad], 1), tab.afrag, tab.fold,
+    out = convert_digits_model(torch.cat([y, pad], 1), afrag, fold,
                                vhat, peaks)
     return out.reshape(d.shape[:-2] + out.shape[-2:]).to(torch.int32)
 
@@ -396,13 +499,16 @@ def ks_moddown_model(d, tab: ModdownTables,
 def byte_extremes(primes, inv_w, pick) -> np.ndarray:
     """Residues c int64 [rows, N] whose Shoup products y = c * inv_w mod q
     have extreme bytes, the conversions' widest digit sums: pick [rows, N]
-    in {0, 1, 2} gives y = 0, y = q - 1 or the largest y < q whose three
-    low bytes are 0xFF; primes, inv_w [rows] (inv_w invertible mod q)."""
+    in {0, 1, 2} gives y = 0, y = q - 1 or the largest y < q whose bytes
+    below q - 1's top byte are all 0xFF (the three low bytes for a prime
+    above 2^24); primes, inv_w [rows] (inv_w invertible mod q)."""
     q = np.asarray([int(v) for v in primes], dtype=np.int64)[:, None]
     w = np.asarray([pow(int(a), -1, int(b)) for a, b in zip(inv_w, primes)],
                    dtype=np.int64)[:, None]
-    ff = ((q - 1) >> 24 << 24) | 0xFFFFFF
-    ff = np.where(ff < q, ff, ff - (1 << 24))
+    low = np.asarray([8 * ((int(v) - 1).bit_length() - 1 >> 3)
+                      for v in primes], dtype=np.int64)[:, None]
+    ff = ((q - 1) >> low << low) | ((1 << low) - 1)
+    ff = np.where(ff < q, ff, ff - (1 << low))
     y = np.choose(np.asarray(pick), [np.zeros_like(q), q - 1, ff])
     return y * w % q
 
@@ -453,15 +559,18 @@ def ks_modup(c, tab: ModupTables, j0: int, j1: int):
     out = torch.empty((j1 - j0, tab.M, N), dtype=torch.int32, device=c.device)
     if out.numel() == 0:
         return out
-    err = _library().ks_modup_launch(
-        c.data_ptr(), tab.dig.data_ptr(), tab.dq.data_ptr(),
-        tab.dinv.data_ptr(), tab.dinvsh.data_ptr(), tab.afrag.data_ptr(),
-        tab.bfold.data_ptr(), out.data_ptr(), j0, j1 - j0,
-        tab.J, tab.M, N, _stream(c))
+    lib = _library()
+    args = (c.data_ptr(), tab.dig.data_ptr(), tab.dq.data_ptr(),
+            tab.dinv.data_ptr(), tab.dinvsh.data_ptr(), tab.afrag.data_ptr(),
+            tab.bfold.data_ptr(), out.data_ptr(), j0, j1 - j0, tab.J, tab.M,
+            N)
+    err = lib.ks_modup_launch(*args, _stream(c)) if tab.nch == 1 else \
+        lib.ks_modup_chunks_launch(*args, tab.nch, _stream(c))
     if err != 0:
         raise RuntimeError(f"ks_modup kernel launch failed: CUDA error {err}")
-    global launches_modup
+    global launches_modup, launches_modup_chunks
     launches_modup += 1
+    launches_modup_chunks += tab.nch > 1
     return out
 
 
@@ -484,15 +593,18 @@ def ks_moddown(d, tab: ModdownTables):
                       device=d.device)
     if out.numel() == 0:
         return out
-    err = _library().ks_moddown_launch(
-        d.data_ptr(), tab.sp.data_ptr(), tab.sinv.data_ptr(),
-        tab.sinvsh.data_ptr(), tab.inv_p.data_ptr(), tab.afrag.data_ptr(),
-        tab.fold.data_ptr(), out.data_ptr(), B, tab.K, tab.R, N, _stream(d))
+    lib = _library()
+    args = (d.data_ptr(), tab.sp.data_ptr(), tab.sinv.data_ptr(),
+            tab.sinvsh.data_ptr(), tab.inv_p.data_ptr(), tab.afrag.data_ptr(),
+            tab.fold.data_ptr(), out.data_ptr(), B, tab.K, tab.R, N)
+    err = lib.ks_moddown_launch(*args, _stream(d)) if tab.nch == 1 else \
+        lib.ks_moddown_chunks_launch(*args, tab.nch, _stream(d))
     if err != 0:
         raise RuntimeError(f"ks_moddown kernel launch failed: CUDA error "
                            f"{err}")
-    global launches_moddown
+    global launches_moddown, launches_moddown_chunks
     launches_moddown += 1
+    launches_moddown_chunks += tab.nch > 1
     return out
 
 
@@ -545,9 +657,12 @@ def _library():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ks_modup_launch.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.ks_moddown_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+        lib.ks_modup_chunks_launch.argtypes = [P] * 8 + [I] * 6 + [P]
+        lib.ks_moddown_chunks_launch.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.sub_scale_launch.argtypes = [P, L, L, P, L, L, P, P] + \
             [I] * 3 + [P]
         for fn in (lib.ks_modup_launch, lib.ks_moddown_launch,
+                   lib.ks_modup_chunks_launch, lib.ks_moddown_chunks_launch,
                    lib.sub_scale_launch):
             fn.restype = ctypes.c_int
     return lib

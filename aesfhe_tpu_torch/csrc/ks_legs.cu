@@ -53,12 +53,28 @@
 //     4 mma, the fold, two 8-byte stores of two consecutive columns (each
 //     warp store fills 8 whole 32-byte sectors);
 //   - a digit with fewer than 8 limbs has zeros in both A and y; a padded
-//     digit (at or past the level's live ones) writes zeros.
-// ks_moddown's float32 v_hat follows the port's plain version bit for bit:
-// K = 8 as eight rounded products added in halves (t_i + t_{i+4}, then
-// + t_{i+2}, then + t_{i+1}); any other K as a fused multiply-add chain from
-// 0 in i order; round half to even.  The intrinsics (__fmul_rn, __fadd_rn,
-// __fmaf_rn) keep nvcc from contracting the K = 8 order into FMAs.
+//     digit (at or past the level's live ones) writes zeros;
+//   - a digit of more than 8 limbs, or more than 8 special primes, is
+//     nch = ceil(width / 8) chunks of one k-step each, in one launch of
+//     the *_chunks kernels (dynamic shared memory of nch * 8 rows): each
+//     chunk's S_e is folded to a canonical partial before the next
+//     chunk's products, the partials are added mod q, and ks_moddown's
+//     v_hat, computed once over all K rows, enters the first chunk's fold
+//     only.  The chunk's A fragments come from the table (L1) at each
+//     8-column tile instead of living in registers.  A width of <= 8 takes
+//     the kernels above unchanged.
+// The fold is exact for every odd q below 2^31: r lies in
+// (-q, floor(x / 2^32)], and floor(x / 2^32) < 2^15 < q above 2^15, while
+// a prime below 2^16 has zero bytes 2 and 3 in A, so H = 0, x < 2^32 and
+// r in (-q, 0] (ks_legs.digit_tables checks the bound row by row).
+// ks_moddown's float32 v_hat follows the port's plain version bit for bit
+// (ks_legs.vhat_frac, XLA:CPU's order): K = 8 as eight rounded products
+// added in halves (t_i + t_{i+4}, then + t_{i+2}, then + t_{i+1}); K >= 16
+// the same eight lanes, each accumulating rows l + 8c by fused
+// multiply-adds before the halves, then the K % 8 rows left as a fused
+// multiply-add chain; any other K as a fused multiply-add chain from 0 in
+// i order; round half to even.  The intrinsics (__fmul_rn, __fadd_rn,
+// __fmaf_rn) keep nvcc from contracting the halving order into FMAs.
 // sub_scale streams: one thread per 4 consecutive coefficients of one row,
 // 16-byte loads and stores, x read through a batch and a row stride (a view
 // of the leading rows of a wider tensor), so no caller copies.
@@ -72,7 +88,8 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
-constexpr int kMaxDigit = 8;
+constexpr int kMaxDigit = 8;  // primes a k-step takes (ks_legs.CHUNK)
+constexpr int kLanes = 8;     // XLA:CPU's v_hat vector lanes (XLA_LANES)
 // Columns a conversion block owns and 8-column tiles a warp takes at a time
 // (`legs_variants` times the alternatives on the card).  ks_modup also caps
 // its registers at 64 (8 blocks an SM): uncapped it takes ~90 and runs
@@ -115,11 +132,11 @@ struct Fold {
 
 // sum_e 256^e S_e + vh corr, times 2^-32, mod q.  The digit matrices carry
 // the factor 2^32, so this is the conversion (minus vh P).  With
-// lo = S_0 + 2^8 S_1 and hi = S_2 + 2^8 S_3 below 2^30 and vh <= 8,
+// lo = S_0 + 2^8 S_1 and hi = S_2 + 2^8 S_3 below 2^30 and vh <= K,
 // x = lo + 2^16 hi + vh corr < 2^47, and the Montgomery step
 // m = x_lo q^-1, x - m q = (x_hi - hi(m q)) 2^32 leaves x_hi - hi(m q) in
-// (-q, 2^15): one conditional addition (an unsigned minimum) makes it
-// canonical.
+// (-q, x_hi], x_hi < q (see the note above): one conditional addition (an
+// unsigned minimum) makes it canonical.
 __device__ __forceinline__ uint32_t fold4(int s0, int s1, int s2, int s3,
                                           uint32_t vh, const Fold& f) {
   const uint32_t lo = static_cast<uint32_t>(s0) +
@@ -306,6 +323,211 @@ ks_moddown_kernel(const uint32_t* __restrict__ d,
                              col0);
 }
 
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
+                                            uint32_t q) {
+  const uint32_t s = a + b;
+  return s >= q ? s - q : s;
+}
+
+// The chunked conversion: as convert_block, over nch chunks of kMaxDigit
+// rows of s_y ([nch * kMaxDigit][kCols + 8]) and of `afrag`
+// ([nch][MT][4][32] uint4), each chunk folded to a canonical partial and
+// the partials added mod q; kDown: v_hat (s_vh) P enters the first chunk.
+template <int kCols, bool kDown>
+__device__ __forceinline__ void convert_chunks(
+    const uint32_t* s_y, const uint32_t* s_vh,
+    const uint4* __restrict__ afrag, const uint32_t* __restrict__ fold,
+    uint32_t* __restrict__ out, int M, int N, int col0, int nch) {
+  constexpr int kPitch = kCols + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int MT = (M + 15) >> 4;
+  const int groups = MT >= kWarps ? 1 : kWarps / MT;
+  const int width = kCols / groups;
+  const long long chunk = static_cast<long long>(MT) * 4 * 32;
+  for (int item = warp; item < MT * groups; item += kWarps) {
+    const int mt = item % MT;
+    const int c0 = (item / MT) * width;
+    const int cols = min(width, N - col0 - c0);
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    const int m0 = min(r0, M - 1), m1 = min(r1, M - 1);
+    const Fold f0{fold[m0], fold[M + m0], fold[2 * M + m0]};
+    const Fold f1{fold[m1], fold[M + m1], fold[2 * M + m1]};
+    const int lim0 = r0 < M ? cols - 2 * t : 0;
+    const int lim1 = r1 < M ? cols - 2 * t : 0;
+    const uint32_t* y = s_y + t * kPitch + c0 + g;
+    const uint32_t* vhp = s_vh + c0 + 2 * t;
+    const uint4* af = afrag + mt * 4 * 32 + lane;
+    const long long at = col0 + c0 + 2 * t;
+    uint32_t* p0 = out + static_cast<long long>(m0) * N + at;
+    uint32_t* p1 = out + static_cast<long long>(m1) * N + at;
+    for (int i = 0; i < cols; i += 8) {
+      uint2 vh = make_uint2(0, 0);
+      if (kDown) vh = *reinterpret_cast<const uint2*>(vhp + i);
+      uint2 v0 = make_uint2(0, 0), v1 = make_uint2(0, 0);
+      for (int c = 0; c < nch; ++c) {
+        const uint32_t b0 = y[c * kMaxDigit * kPitch + i];
+        const uint32_t b1 = y[(c * kMaxDigit + 4) * kPitch + i];
+        int s[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mma_u8(s[e], __ldg(af + c * chunk + e * 32), b0, b1);
+        v0.x = add_mod(v0.x, fold4(s[0][0], s[1][0], s[2][0], s[3][0], vh.x,
+                                   f0), f0.q);
+        v0.y = add_mod(v0.y, fold4(s[0][1], s[1][1], s[2][1], s[3][1], vh.y,
+                                   f0), f0.q);
+        v1.x = add_mod(v1.x, fold4(s[0][2], s[1][2], s[2][2], s[3][2], vh.x,
+                                   f1), f1.q);
+        v1.y = add_mod(v1.y, fold4(s[0][3], s[1][3], s[2][3], s[3][3], vh.y,
+                                   f1), f1.q);
+        vh = make_uint2(0, 0);
+      }
+      if (i < lim0) *reinterpret_cast<uint2*>(p0 + i) = v0;
+      if (i < lim1) *reinterpret_cast<uint2*>(p1 + i) = v1;
+    }
+  }
+}
+
+// ks_modup_kernel for digits of more than kMaxDigit limbs: dq, dinv,
+// dinvsh [jlive, nch * kMaxDigit], afrag [jlive, nch, MT, 4, 32] uint4;
+// dynamic shared memory nch * kMaxDigit rows of kUpCols + 8 words.
+__global__ void __launch_bounds__(kBlock)
+ks_modup_chunks_kernel(const uint4* __restrict__ c,
+                       const int32_t* __restrict__ dig,
+                       const uint32_t* __restrict__ dq,
+                       const uint32_t* __restrict__ dinv,
+                       const uint32_t* __restrict__ dinvsh,
+                       const uint4* __restrict__ afrag,
+                       const uint32_t* __restrict__ bfold,
+                       uint32_t* __restrict__ out, int j0, int jlive, int M,
+                       int N, int nch) {
+  constexpr int kCols = kUpCols, kPitch = kCols + 8;
+  extern __shared__ __align__(16) uint32_t s_dyn[];
+  const int W = nch * kMaxDigit;
+  const int jg = j0 + blockIdx.y;
+  const int col0 = blockIdx.x * kCols;
+  const int n4 = N / 4;
+  uint32_t* o = out + static_cast<long long>(blockIdx.y) * M * N;
+  if (jg >= jlive) {
+    for (int i = threadIdx.x; i < M * (kCols / 4); i += kBlock) {
+      const int m = i / (kCols / 4), col = col0 + 4 * (i % (kCols / 4));
+      if (col < N)
+        *reinterpret_cast<uint4*>(o + static_cast<long long>(m) * N + col) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int first = dig[2 * jg], cnt = dig[2 * jg + 1];
+  // a chunk's words: kPer 16-byte loads a thread, all issued before use
+  constexpr int kPer = kMaxDigit * (kCols / 4) / kBlock;
+  static_assert(kPer * kBlock == kMaxDigit * (kCols / 4),
+                "a chunk's words must split evenly over the block");
+#pragma unroll 2
+  for (int a0 = 0; a0 < W; a0 += kMaxDigit) {
+    uint4 v[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * kBlock;
+      const int a = a0 + i / (kCols / 4), col = col0 + 4 * (i % (kCols / 4));
+      v[r] = a < cnt && col < N
+                 ? c[static_cast<long long>(first + a) * n4 + col / 4]
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * kBlock;
+      const int a = a0 + i / (kCols / 4), c4 = i % (kCols / 4);
+      if (a < cnt) {
+        const int k = jg * W + a;
+        v[r] = shoup4(v[r], dinv[k], dinvsh[k], dq[k]);
+      }
+      *reinterpret_cast<uint4*>(s_dyn + a * kPitch + 4 * c4) = v[r];
+    }
+  }
+  __syncthreads();
+  const int MT = (M + 15) >> 4;
+  convert_chunks<kCols, false>(
+      s_dyn, nullptr,
+      afrag + static_cast<long long>(jg) * nch * MT * 4 * 32, bfold, o, M,
+      N, col0, nch);
+}
+
+// v_hat of one column from its K words y[i * pitch], in vhat1's order for
+// any K (ks_legs.vhat_frac).
+__device__ __forceinline__ uint32_t vhat_rows(const uint32_t* y, int pitch,
+                                              const float* __restrict__ inv_p,
+                                              int K) {
+  float f = 0.0f;
+  int i = 0;
+  if (K == kLanes || K >= 2 * kLanes) {
+    float u[kLanes];
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+      u[l] = __fmul_rn(__uint2float_rn(y[l * pitch]), __ldg(inv_p + l));
+    const int vec = K / kLanes * kLanes;
+    for (i = kLanes; i < vec; i += kLanes) {
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l)
+        u[l] = __fmaf_rn(__uint2float_rn(y[(i + l) * pitch]),
+                         __ldg(inv_p + i + l), u[l]);
+    }
+#pragma unroll
+    for (int l = 0; l < 4; ++l) u[l] = __fadd_rn(u[l], u[l + 4]);
+#pragma unroll
+    for (int l = 0; l < 2; ++l) u[l] = __fadd_rn(u[l], u[l + 2]);
+    f = __fadd_rn(u[0], u[1]);
+  }
+  for (; i < K; ++i)
+    f = __fmaf_rn(__uint2float_rn(y[i * pitch]), __ldg(inv_p + i), f);
+  return static_cast<uint32_t>(__float2int_rn(f));
+}
+
+// ks_moddown_kernel for more than kMaxDigit special primes: afrag
+// [nch, MT, 4, 32] uint4; dynamic shared memory kDownCols words of v_hat
+// and nch * kMaxDigit rows of kDownCols + 8 words.
+__global__ void __launch_bounds__(kBlock)
+ks_moddown_chunks_kernel(const uint32_t* __restrict__ d,
+                         const uint32_t* __restrict__ sp,
+                         const uint32_t* __restrict__ sinv,
+                         const uint32_t* __restrict__ sinvsh,
+                         const float* __restrict__ inv_p,
+                         const uint4* __restrict__ afrag,
+                         const uint32_t* __restrict__ fold,
+                         uint32_t* __restrict__ out, int K, int R, int N,
+                         int nch) {
+  constexpr int kCols = kDownCols, kPitch = kCols + 8;
+  extern __shared__ __align__(16) uint32_t s_dyn[];
+  uint32_t* s_vh = s_dyn;
+  uint32_t* s_y = s_dyn + kCols;
+  const int W = nch * kMaxDigit;
+  const int b = blockIdx.y;
+  const int col0 = blockIdx.x * kCols;
+  for (int c = threadIdx.x; c < kCols; c += kBlock) {
+    const int col = col0 + c;
+    // a chunk's kMaxDigit words of the column, all loaded before use
+#pragma unroll 2
+    for (int i0 = 0; i0 < W; i0 += kMaxDigit) {
+      uint32_t x[kMaxDigit];
+#pragma unroll
+      for (int l = 0; l < kMaxDigit; ++l)
+        x[l] = i0 + l < K && col < N
+                   ? d[(static_cast<long long>(b) * K + i0 + l) * N + col]
+                   : 0u;
+#pragma unroll
+      for (int l = 0; l < kMaxDigit; ++l) {
+        const int i = i0 + l;
+        s_y[i * kPitch + c] =
+            i < K ? shoup(x[l], sinv[i], sinvsh[i], sp[i]) : 0u;
+      }
+    }
+    s_vh[c] = vhat_rows(s_y + c, kPitch, inv_p, K);
+  }
+  __syncthreads();
+  convert_chunks<kCols, true>(s_y, s_vh, afrag, fold,
+                              out + static_cast<long long>(b) * R * N, R, N,
+                              col0, nch);
+}
+
 // x: [B, R, n4] uint4 through strides (xb, xr, in uint4 units); y likewise;
 // tab: [3, R] q, w, floor(w * 2^32 / q).  out: [B, R, n4] contiguous,
 // (x - y) * w mod q.
@@ -363,6 +585,59 @@ extern "C" int ks_moddown_launch(const void* d, const void* sp,
       static_cast<const float*>(inv_p), static_cast<const uint4*>(afrag),
       static_cast<const uint32_t*>(fold), static_cast<uint32_t*>(out), K, R,
       N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked conversions (nch chunks of kMaxDigit primes): the same
+// arguments and grids as the launchers above.  The dynamic shared memory
+// passes 48 KB only past 5 (ks_moddown) or 11 (ks_modup) chunks; the
+// launch then asks for more, up to the card's limit, or fails.
+template <typename Kernel>
+inline int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+extern "C" int ks_modup_chunks_launch(const void* c, const void* dig,
+                                      const void* dq, const void* dinv,
+                                      const void* dinvsh, const void* afrag,
+                                      const void* bfold, void* out, int j0,
+                                      int J, int jlive, int M, int N, int nch,
+                                      void* stream) {
+  const size_t smem =
+      sizeof(uint32_t) * nch * kMaxDigit * (kUpCols + 8);
+  if (const int err = set_smem(ks_modup_chunks_kernel, smem)) return err;
+  const dim3 grid((N + kUpCols - 1) / kUpCols, J);
+  ks_modup_chunks_kernel<<<grid, kBlock, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(c), static_cast<const int32_t*>(dig),
+      static_cast<const uint32_t*>(dq), static_cast<const uint32_t*>(dinv),
+      static_cast<const uint32_t*>(dinvsh), static_cast<const uint4*>(afrag),
+      static_cast<const uint32_t*>(bfold), static_cast<uint32_t*>(out), j0,
+      jlive, M, N, nch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ks_moddown_chunks_launch(const void* d, const void* sp,
+                                        const void* sinv, const void* sinvsh,
+                                        const void* inv_p, const void* afrag,
+                                        const void* fold, void* out, int B,
+                                        int K, int R, int N, int nch,
+                                        void* stream) {
+  const size_t smem =
+      sizeof(uint32_t) * (kDownCols + nch * kMaxDigit * (kDownCols + 8));
+  if (const int err = set_smem(ks_moddown_chunks_kernel, smem)) return err;
+  const dim3 grid((N + kDownCols - 1) / kDownCols, B);
+  ks_moddown_chunks_kernel<<<grid, kBlock, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(d), static_cast<const uint32_t*>(sp),
+      static_cast<const uint32_t*>(sinv),
+      static_cast<const uint32_t*>(sinvsh),
+      static_cast<const float*>(inv_p), static_cast<const uint4*>(afrag),
+      static_cast<const uint32_t*>(fold), static_cast<uint32_t*>(out), K, R,
+      N, nch);
   return static_cast<int>(cudaGetLastError());
 }
 

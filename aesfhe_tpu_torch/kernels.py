@@ -9,7 +9,8 @@ Nothing here runs at import: the CPU tests import every module.
 
 Each wrapper counts its kernel's launches in a module-level integer;
 `COUNTERS` names them, and `launch_counts`/`zero_launches`/`add_launches`
-read, zero and add to all of them at once.
+read, zero and add to all of them at once (`VARIANTS`, `variant_counts`:
+the chunked conversions' share of ks_modup's and ks_moddown's).
 """
 from __future__ import annotations
 
@@ -34,6 +35,11 @@ COUNTERS = {"ks_inner": ("ks_inner", "launches"),
             "ks_modup": ("ks_legs", "launches_modup"),
             "ks_moddown": ("ks_legs", "launches_moddown"),
             "sub_scale": ("ks_legs", "launches_sub_scale")}
+# of those launches, the instances that only some parameter sets reach (the
+# chunked conversions: a digit or special set of more than 8 primes);
+# zeroed with the counters above, read by `variant_counts`
+VARIANTS = {"ks_modup_chunks": ("ks_legs", "launches_modup_chunks"),
+            "ks_moddown_chunks": ("ks_legs", "launches_moddown_chunks")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -97,7 +103,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _counter(name: str):
-    mod, attr = COUNTERS[name]
+    mod, attr = COUNTERS[name] if name in COUNTERS else VARIANTS[name]
     return importlib.import_module(f"{__package__}.core.{mod}"), attr
 
 
@@ -106,8 +112,13 @@ def launch_counts() -> dict[str, int]:
     return {n: getattr(*_counter(n)) for n in COUNTERS}
 
 
+def variant_counts() -> dict[str, int]:
+    """The launches of each instance in VARIANTS so far."""
+    return {n: getattr(*_counter(n)) for n in VARIANTS}
+
+
 def zero_launches() -> None:
-    for n in COUNTERS:
+    for n in (*COUNTERS, *VARIANTS):
         setattr(*_counter(n), 0)
 
 

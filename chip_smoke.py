@@ -25,7 +25,18 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      widest switch, ks_modup over the mesh's digit ranges (a padded last
      digit, a range of padding only), both conversions on byte-extreme
      inputs (K = 8 and 4), ks_moddown on inputs at float32 half-integers
-     of v_hat's sum (K = 8 and 4), sub_scale on strided views;
+     of v_hat's sum (K = 8 and 4), sub_scale on strided views; then both
+     conversions past one k-step (WIDE_SETS at N=2^16: 9, 10 and 16 special
+     primes, digits of 9 and 16 limbs; the chunked instances) and over the
+     chain of primes below 2^16 (SMALL_PRIMES' tables, 2^16 columns), at
+     the top and a middle level, on random, byte-extreme and (mod-down)
+     half-integer inputs;
+  3b. key-switch phase: one relinearization and one rotation at each of
+     WIDE_SETS (N=2^16) and SMALL_PRIMES (N=2^10, the largest ring its
+     primes exist for), from seeded keys, decrypted against the encoded
+     values with the decode error stated; every key-switch kernel
+     launched, the chunked instances exactly where a digit or the special
+     set passes 8 primes;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -91,11 +102,14 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
 Every main path (slice, bench legs, flagship with its graph replays, each
 fused replay, zeta legs, every mesh rank) zeroes the launch counts just
 before it and prints every kernel's launches, which must all be > 0, with
-one ks_moddown launch per ks_inner launch (one mod-down per key-switch).
-The line before the last is a JSON object with one entry per kernel
-(ks_inner, ntt_fwd, ntt_inv, ks_modup, ks_moddown, sub_scale; launches
-summed over the slice, the bench legs, the flagship, the zeta legs and
-every rank of the mesh phase); the last line is
+one ks_moddown launch per ks_inner launch (one mod-down per key-switch),
+and none of a chunked conversion (prod_boot's digits and special set have
+8 primes).  The line before the last is a JSON object with one entry per
+kernel (ks_inner, ntt_fwd, ntt_inv, ks_modup, ks_moddown, sub_scale;
+launches summed over the slice, the bench legs, the flagship, the zeta
+legs and every rank of the mesh phase) and per chunked instance
+(ks_modup_chunks, ks_moddown_chunks; launches of the key-switch phase
+3b, the path that reaches them); the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -117,7 +131,8 @@ from aesfhe_tpu_torch import (bench, bootstrap, kernels, legs_variants,
 from aesfhe_tpu_torch.aes_tables import aes128_partial
 from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
-from aesfhe_tpu_torch.core.params import get_params
+from aesfhe_tpu_torch.core.engine import Engine
+from aesfhe_tpu_torch.core.params import CKKSParams, get_params
 from aesfhe_tpu_torch.legs_variants import graph_ms
 from aesfhe_tpu_torch.ops.bitplane import BitState
 from aesfhe_tpu_torch.ops.xor_service import EngineWrapper, XORConfig
@@ -155,6 +170,25 @@ MESH_SEED = SEED + 4
 # bench's bitplane and zeta legs: the root bench.py's default profile
 BENCH_LOGN, BENCH_LEVELS, BENCH_ITERS = 16, 16, 3
 ZETA_ROUNDS = 10
+# Parameter sets past one k-step of the conversion kernels (8 primes): 9,
+# 10 and 16 special primes, and digits of 9 (alpha 9) and 16 limbs (alpha
+# 16); prod_boot's scale and secret weight on a 13-prime chain (21 for
+# alpha 16).  (top, middle) levels: the middle one keeps a digit past 8
+# limbs.
+WIDE_SETS = {"K=9": dict(num_special_primes=9),
+             "K=10": dict(num_special_primes=10),
+             "K=16": dict(num_special_primes=16),
+             "alpha=9": dict(num_special_primes=10, alpha=9),
+             "alpha=16": dict(max_level=20, num_special_primes=16, alpha=16)}
+WIDE_SETS = {k: dict(dict(n=1 << 16, max_level=12, scale_bits=27,
+                          secret_hamming=192), **v)
+             for k, v in WIDE_SETS.items()}
+WIDE_MIDDLE = {"K=9": 9, "K=10": 10, "K=16": 9, "alpha=9": 9, "alpha=16": 16}
+# The chain of primes below 2^16 (30, 15, 14, 16, 16 bits; specials of
+# 30): scale 2^14 needs primes 1 mod 2N near 2^14, which exist up to
+# N=2^11, so it runs at N=2^10; its conversion tables are held at 2^16
+# columns in the kernel phase.
+SMALL_PRIMES = dict(n=1 << 10, max_level=4, scale_bits=14)
 
 
 T0 = time.perf_counter()
@@ -190,10 +224,13 @@ zero_launches = kernels.zero_launches      # just before a main path runs
 read_launches = kernels.launch_counts
 
 
-def check_launches(where: str, counts: dict):
+def check_launches(where: str, counts: dict, chunks: bool = False):
     """Print a main path's kernel launches: every kernel must have run, and
-    the mod-down once per key-switch, as the inner product."""
-    print(f"{where}: kernel launches {counts}", flush=True)
+    the mod-down once per key-switch, as the inner product; the chunked
+    conversions (this process's counts) not at all, unless `chunks`."""
+    variants = kernels.variant_counts()
+    print(f"{where}: kernel launches {counts}, chunked {variants}",
+          flush=True)
     if any(v <= 0 for v in counts.values()) or set(counts) != \
             set(kernels.COUNTERS):
         raise AssertionError(f"{where}: not every kernel was launched: "
@@ -201,6 +238,9 @@ def check_launches(where: str, counts: dict):
     if counts["ks_moddown"] != counts["ks_inner"]:
         raise AssertionError(f"{where}: {counts['ks_moddown']} mod-downs "
                              f"for {counts['ks_inner']} inner products")
+    if not chunks and any(variants.values()):
+        raise AssertionError(f"{where}: a chunked conversion ran: "
+                             f"{variants}")
 
 
 def add_launches(total: dict, counts: dict):
@@ -489,12 +529,14 @@ def legs_case(name: str, label: str, run, plain, work) -> dict:
                 bound_by=bound_by)
 
 
-def half_integer_specials(params, level: int, B: int, rng, dev):
-    """The special rows d [B, K, N] (plain, canonical) of a mod-down input
-    whose float32 sums sum_i y_i/p_i lie within a few 1e-8 of a
-    half-integer, where the summation order decides v_hat's rounding
+def half_integer_specials(params, level: int, B: int, rng, dev,
+                          n: int | None = None):
+    """The special rows d [B, K, n] (plain, canonical; n = N by default) of
+    a mod-down input whose float32 sums sum_i y_i/p_i lie within a few
+    1e-8 of a half-integer, where the summation order decides v_hat's
+    rounding
     (tests/test_torch_core.py::test_mod_down_vhat_at_half_integers)."""
-    K, n = params.num_special, params.n
+    K, n = params.num_special, n or params.n
     ps = np.asarray(params.special_primes, dtype=np.int64)
     y = rng.integers(0, 1 << 62, (B, K, n)) % ps[:, None]
     rest = (y[:, 1:] / ps[1:, None]).sum(1)
@@ -517,7 +559,10 @@ def ks_legs_cases(params, rng, dev) -> list:
     level and bench's; ks_moddown on inputs at float32 half-integers of
     v_hat's sum for K = 8 and K = 4; sub_scale on strided views (a
     mod-down's q rows of [2, M, N], a rescale's first l rows of
-    [2, l+1, N])."""
+    [2, l+1, N]).  Then the conversions past one k-step and over primes
+    below 2^16 (`wide_params`) at their top and middle levels, on random,
+    byte-extreme and half-integer inputs, each named by the instance it
+    launches (ks_modup_chunks, ks_moddown_chunks past 8 primes)."""
     log = kernels.BUILD_DIR / "ks_legs.ptxas.log"
     entry = None
     for line in log.read_text().splitlines():
@@ -529,24 +574,25 @@ def ks_legs_cases(params, rng, dev) -> list:
     bp = bench.bench_params(BENCH_LOGN, BENCH_LEVELS)
     cases = []
 
-    def residues(p, rows, lead):
+    def residues(p, rows, lead, n=None):
         qs = np.asarray(p.all_primes, dtype=np.int64)[np.asarray(rows)]
-        x = rng.integers(0, 1 << 62, tuple(lead) + (len(rows), p.n))
+        x = rng.integers(0, 1 << 62, tuple(lead) + (len(rows), n or p.n))
         return torch.as_tensor(x % qs[:, None], device=dev).int()
 
     def picks(rows, n, mixed):
         return rng.integers(0, 3, (rows, n)) if mixed else \
             np.full((rows, n), 2)
 
-    def modup(p, level, tag, j0=0, j1=None, c=None):
+    def modup(p, level, tag, j0=0, j1=None, c=None, n=None):
         tab = ks_legs.ModupTables(p, level, dev)
         j1 = tab.J if j1 is None else j1
         if c is None:
-            c = residues(p, ops_impl._rows(p, level, False), ())
+            c = residues(p, ops_impl._rows(p, level, False), (), n)
         live = max(0, min(j1, tab.J) - j0)
         work = ks_legs.modup_work(sum(tab.dig[j0:j0 + live, 1].tolist()),
-                                  j1 - j0, tab.M, p.n)
-        out = legs_case("ks_modup", f"{tag} digits [{j0}, {j1}) of {tab.J}",
+                                  j1 - j0, tab.M, c.shape[-1])
+        name = "ks_modup_chunks" if tab.nch > 1 else "ks_modup"
+        out = legs_case(name, f"{tag} digits [{j0}, {j1}) of {tab.J}",
                         lambda: ks_legs.ks_modup(c, tab, j0, j1),
                         lambda: ks_legs.ks_modup_plain(c, tab, j0, j1), work)
         if live < j1 - j0 and bool(ks_legs.ks_modup(c, tab, j0, j1)
@@ -554,44 +600,45 @@ def ks_legs_cases(params, rng, dev) -> list:
             raise AssertionError("ks_modup: a padded digit is not zero")
         return out
 
-    def modup_extreme(p, level, mixed):
+    def modup_extreme(p, level, mixed, tag="", n=None):
         inv = [0] * (level + 1)
         for g in p.ks_tables(level)["groups"]:
             for i, w in zip(g["limbs"], g["inv_w"]):
                 inv[i] = w
         c = ks_legs.byte_extremes(p.q_primes[:level + 1], inv,
-                                  picks(level + 1, p.n, mixed))
-        return modup(p, level, f"level {level} byte-extreme "
+                                  picks(level + 1, n or p.n, mixed))
+        return modup(p, level, f"{tag}level {level} byte-extreme "
                      f"{'mix' if mixed else '0xFF'}",
                      c=torch.as_tensor(c, device=dev).int())
 
-    def moddown(p, level, tag, d=None):
+    def moddown(p, level, tag, d=None, n=None):
         tab = ks_legs.ModdownTables(p, level, dev)
         if d is None:
-            d = residues(p, range(p.num_q, p.L_tot), (2,))
-        work = ks_legs.moddown_work(d.shape[0], tab.K, tab.R, p.n)
-        return legs_case("ks_moddown", f"{tag} K={tab.K}",
+            d = residues(p, range(p.num_q, p.L_tot), (2,), n)
+        work = ks_legs.moddown_work(d.shape[0], tab.K, tab.R, d.shape[-1])
+        name = "ks_moddown_chunks" if tab.nch > 1 else "ks_moddown"
+        return legs_case(name, f"{tag} K={tab.K}",
                          lambda: ks_legs.ks_moddown(d, tab),
                          lambda: ks_legs.ks_moddown_plain(d, tab), work)
 
-    def moddown_extreme(p, level, mixed):
+    def moddown_extreme(p, level, mixed, tag="", n=None):
         K = p.num_special
         d = np.stack([ks_legs.byte_extremes(
             p.special_primes, p.md_tables(level)["inv_w"],
-            picks(K, p.n, mixed)) for _ in range(2)])
-        return moddown(p, level, f"level {level} byte-extreme "
+            picks(K, n or p.n, mixed)) for _ in range(2)])
+        return moddown(p, level, f"{tag}level {level} byte-extreme "
                        f"{'mix' if mixed else '0xFF'}",
                        torch.as_tensor(d, device=dev).int())
 
-    def sub_scale(p, level, tag, rows):
-        wide = residues(p, range(rows), (2,))
+    def sub_scale(p, level, tag, rows, n=None):
+        wide = residues(p, range(rows), (2,), n)
         x = wide[:, :level + 1]
-        y = residues(p, range(level + 1), (2,))
+        y = residues(p, range(level + 1), (2,), n)
         tab = ks_legs.ModdownTables(p, level, dev).pinv
         return legs_case("sub_scale", f"{tag}, x a [2, {level + 1}] view of "
                          f"[2, {rows}]", lambda: ks_legs.sub_scale(x, y, tab),
                          lambda: ks_legs.sub_scale_plain(x, y, tab),
-                         ks_legs.sub_scale_work(2, level + 1, p.n))
+                         ks_legs.sub_scale_work(2, level + 1, x.shape[-1]))
 
     top = params.top_level
     K = params.num_special
@@ -627,7 +674,94 @@ def ks_legs_cases(params, rng, dev) -> list:
     cases.append(sub_scale(bp, BENCH_LEVELS - 1,
                            f"bench mod-down level {BENCH_LEVELS - 1}",
                            BENCH_LEVELS + bp.num_special))
+    n = 1 << 16
+    for name in (*WIDE_SETS, "scale 2^14"):
+        p = wide_params(name)
+        middle = WIDE_MIDDLE.get(name, p.top_level // 2)
+        for level in (p.top_level, middle):
+            tag = f"{name} "
+            cases.append(modup(p, level, f"{tag}level {level}", n=n))
+            cases.append(moddown(p, level, f"{tag}level {level}", n=n))
+            cases.append(moddown(p, level, f"{tag}level {level} half-integer "
+                                 f"v_hat sums", half_integer_specials(
+                                     p, level, 2, rng, dev, n)))
+            for mixed in (False, True):
+                cases.append(modup_extreme(p, level, mixed, tag, n))
+                cases.append(moddown_extreme(p, level, mixed, tag, n))
+        if name == "scale 2^14":
+            cases.append(sub_scale(p, p.top_level, f"{tag}mod-down level "
+                                   f"{p.top_level}", p.L_tot, n))
     return cases
+
+
+_WIDE: dict = {}
+
+
+def wide_params(name: str) -> CKKSParams:
+    """WIDE_SETS[name] or ("scale 2^14") SMALL_PRIMES, built once."""
+    if name not in _WIDE:
+        _WIDE[name] = CKKSParams(**WIDE_SETS.get(name, SMALL_PRIMES))
+    return _WIDE[name]
+
+
+def keyswitch_phase() -> dict:
+    """One relinearization (of a product) and one rotation by one slot at
+    each of WIDE_SETS and SMALL_PRIMES on the card, from seeded keys:
+    every key-switch kernel launched (one mod-down per inner product),
+    the chunked conversions exactly where a digit at that level or the
+    special set has more than 8 primes, and the results decrypted against
+    the encoded values (x uniform in [-1, 1], in [-256, 256] at scale
+    2^14, whose fresh noise is ~1), each decode error within 5% of the
+    largest value.  Returns the chunked instances' launches summed."""
+    total = dict.fromkeys(kernels.VARIANTS, 0)
+    for name in (*WIDE_SETS, "scale 2^14"):
+        p = wide_params(name)
+        t0 = time.perf_counter()
+        eng = Engine(p, device="cuda", rng=np.random.default_rng(SEED))
+        sk = eng.create_secret_key()
+        pk = eng.create_public_key(sk)
+        rlk = eng.create_relinearization_key(sk)
+        rot = eng.create_fixed_rotation_key(sk, [1])
+        amp = 1.0 if p.scale_bits > 20 else 256.0
+        x = np.random.default_rng(SEED + 2).uniform(-amp, amp, p.slot_count)
+        ct = eng.encrypt(x, pk)
+        sq = eng.multiply(ct, ct)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        sq = eng.relinearize(sq, rlk)
+        r = eng.rotate(ct, rot, 1)
+        torch.cuda.synchronize()
+        ks_s = time.perf_counter() - t0
+        counts = read_launches()
+        chunked = kernels.variant_counts()
+        check_launches(f"key-switch {name}", counts, chunks=True)
+        want = {"ks_modup_chunks": sum(
+                    ks_legs.ModupTables(p, lvl, "cpu").nch > 1
+                    for lvl in (sq.level, ct.level)),
+                "ks_moddown_chunks": 2 * (p.num_special > ks_legs.CHUNK)}
+        if chunked != want:
+            raise AssertionError(f"key-switch {name}: chunked launches "
+                                 f"{chunked}, expected {want}")
+        errs = {"relin": float(np.abs(eng.decrypt(sq, sk) - x * x).max()
+                               / amp ** 2),
+                "rotate": float(np.abs(eng.decrypt(r, sk) - np.roll(x, 1))
+                                .max() / amp)}
+        print(f"key-switch {name}: N={p.n}, {p.num_q} q primes "
+              f"({min(q.bit_length() for q in p.q_primes)}-"
+              f"{max(q.bit_length() for q in p.q_primes)} bits), K="
+              f"{p.num_special}, digits {[len(g) for g in p.groups]}; "
+              f"keygen and product {keygen_s:.2f} s, relinearize + rotate "
+              f"{ks_s * 1e3:.1f} ms; decode error / max value: relinearized "
+              f"square {errs['relin']:.3e}, rotation {errs['rotate']:.3e}",
+              flush=True)
+        if not all(np.isfinite(v) and v < 0.05 for v in errs.values()):
+            raise AssertionError(f"key-switch {name}: decode errors {errs}")
+        add_launches(total, chunked)
+        del eng, sk, pk, rlk, rot, ct, sq, r
+        torch.cuda.empty_cache()
+    return total
 
 
 def mesh_rank(rank: int, world: int, profile: str, device_type: str,
@@ -1064,11 +1198,11 @@ def bench_phase() -> int:
 
 
 def finish(card: str, cases: list, top: dict, ntt_shapes: list,
-           legs: list, launches: dict) -> int:
+           legs: list, launches: dict, chunk_launches: dict) -> int:
     """The closing lines: the kernels line (each kernel's `launches` summed
-    over the main paths run; ms, plain_ms and bound_ms of its widest shape,
-    and every shape timed under "shapes"), the card, the contract's last
-    line."""
+    over the main paths run, the chunked instances' over the key-switch
+    phase; ms, plain_ms and bound_ms of its widest shape, and every shape
+    timed under "shapes"), the card, the contract's last line."""
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
           flush=True)
     entries = [dict(
@@ -1092,14 +1226,19 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             library_ms=None, shapes=mine))
     # ks_legs.cu's kernels; no single PyTorch call computes any of them
     for name, line_no in (("ks_modup", 497), ("ks_moddown", 697),
-                          ("sub_scale", 760)):
+                          ("sub_scale", 760), ("ks_modup_chunks", 497),
+                          ("ks_moddown_chunks", 697)):
         mine = [c for c in legs if c["name"] == name]
-        widest = mine[0]            # the top level
+        # the top level (the chunked instances': the case of the largest
+        # bound)
+        widest = mine[0] if name in launches else max(
+            mine, key=lambda c: c["bound_ms"])
         entries.append(dict(
             name=name, route="cuda",
             source="aesfhe_tpu_torch/csrc/ks_legs.cu",
             replaces=f"aesfhe_tpu/core/ops_impl.py:{line_no}",
-            launches=launches[name],
+            launches=launches[name] if name in launches else
+            chunk_launches[name],
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
@@ -1169,7 +1308,11 @@ def main(argv=None) -> int:
     if mesh_only:
         phase("mesh")
         return finish(card, cases, top, ntt_shapes, legs,
-                      mesh_phase(2)["launches"])
+                      mesh_phase(2)["launches"],
+                      dict.fromkeys(kernels.VARIANTS, 0))
+
+    phase("key-switch past 8 primes and below 2^16")
+    chunk_launches = keyswitch_phase()
 
     phase("slice")
     t0 = time.perf_counter()
@@ -1346,7 +1489,7 @@ def main(argv=None) -> int:
     # ten zeta rounds need the time
     phase("mesh")
     add_launches(total, mesh_phase(1)["launches"])
-    return finish(card, cases, top, ntt_shapes, legs, total)
+    return finish(card, cases, top, ntt_shapes, legs, total, chunk_launches)
 
 
 if __name__ == "__main__":

@@ -242,17 +242,24 @@ def test_cli_demo_xor_needs_a_card_unless_told_cpu(capsys):
 
 
 # the chains of each special-prime count K: 2 (tiny), 3 (test), 4
-# (boot_tiny), 6 (deep), 8 (prod_boot's shape on N=2^10), at a level each
+# (boot_tiny), 6 (deep), 8 (prod_boot's shape on N=2^10), at a level each;
+# then K = 5, 7, 9, 10, 12 and 16 special primes on a 13-prime chain
+# (XLA:CPU sums K = 8 and K >= 16 in 8 vector lanes, the others as one
+# fused multiply-add chain)
 VHAT_CASES = [("tiny", 4), ("test", 10), ("boot_tiny", 30), ("deep", 20),
-              ("prod_shape_n1024", 16)]
+              ("prod_shape_n1024", 16), ("k5", 12), ("k7", 12), ("k9", 12),
+              ("k10", 12), ("k12", 12), ("k16", 12)]
 
 
 def _params_pair(name):
-    if name == "prod_shape_n1024":
+    if name == "prod_shape_n1024" or name.startswith("k"):
         from aesfhe_tpu.core.params import CKKSParams as JP
         from aesfhe_tpu_torch.core.params import CKKSParams as TP
         kw = dict(n=1 << 10, max_level=54, scale_bits=27,
                   num_special_primes=8, secret_hamming=192)
+        if name != "prod_shape_n1024":
+            kw = dict(n=1 << 10, max_level=12, scale_bits=26,
+                      num_special_primes=int(name[1:]))
         return JP(**kw), TP(**kw)
     return jparams(name), tparams(name)
 

@@ -301,6 +301,102 @@ def test_ks_legs_kernels_equal_plain(level):
     torch.cuda.synchronize()
 
 
+# parameter sets past one k-step of the conversion kernels (digits or
+# special sets of more than 8 primes: chunked conversions) and a chain of
+# primes below 2^16 (30, 15, 14, 16, 16 bits), on N=2^10 tables
+WIDE = {"k9": dict(num_special_primes=9), "k10": dict(num_special_primes=10),
+        "k16": dict(num_special_primes=16),
+        "alpha9": dict(num_special_primes=10, alpha=9),
+        "alpha16": dict(max_level=20, num_special_primes=16, alpha=16)}
+WIDE = {k: dict(dict(n=1 << 10, max_level=12, scale_bits=26), **v)
+        for k, v in WIDE.items()}
+WIDE["scale14"] = dict(n=1 << 10, max_level=4, scale_bits=14)
+
+
+def _boom(*args, **kwargs):
+    raise AssertionError("a plain version ran on the card")
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_and_small_prime_legs_equal_plain(name, monkeypatch):
+    """The chunked conversions (ceil(width / 8) chunks a launch) and the
+    conversions over primes below 2^16 equal their plain versions at
+    N = 2^12, at the top and a middle level: ks_modup on every digit, a
+    mesh range with a padded digit, byte-extreme inputs; ks_moddown on
+    random, half-integer and byte-extreme rows.  Each call is one launch,
+    and none reaches a plain version or vhat_frac's CPU loop (they raise
+    here).  Then a whole key-switch (NTT, ks_modup, ks_inner, ks_moddown,
+    sub_scale on the card) equals the CPU's at N = 2^10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch.core.engine import Engine
+    p = CKKSParams(**WIDE[name])
+    n = 1 << 12
+    rng = np.random.default_rng(len(name))
+
+    def res(primes, lead):
+        q = np.asarray([int(v) for v in primes], dtype=np.int64)[:, None]
+        x = rng.integers(0, 1 << 62, tuple(lead) + (len(q), n)) % q
+        return torch.as_tensor(x, device="cuda").int()
+
+    calls = []
+    for level in (p.top_level, p.top_level // 2):
+        up = ks_legs.ModupTables(p, level, "cuda")
+        qs = p.q_primes[:level + 1]
+        inv = [0] * (level + 1)
+        for g in p.ks_tables(level)["groups"]:
+            for i, w in zip(g["limbs"], g["inv_w"]):
+                inv[i] = w
+        cs = [res(qs, ())] + [torch.as_tensor(ks_legs.byte_extremes(
+            qs, inv, pick), device="cuda").int() for pick in (
+                np.full((level + 1, n), 2), rng.integers(0, 3, (level + 1, n)))]
+        for c in cs:
+            for j0, j1 in ((0, up.J), (up.J - 1, up.J + 1)):
+                calls.append(("up", (c, up, j0, j1),
+                              ks_legs.ks_modup_plain(c, up, j0, j1)))
+        down = ks_legs.ModdownTables(p, level, "cuda")
+        K, ps = p.num_special, np.asarray(p.special_primes, dtype=np.int64)
+        y = rng.integers(0, 1 << 62, (2, K, n)) % ps[:, None]
+        rest = (y[:, 1:] / ps[1:, None]).sum(1)
+        y0 = np.round((np.ceil(rest - 0.5) + 0.5 - rest) * ps[0])
+        y[:, 0] = np.clip(y0.astype(np.int64) + rng.integers(-40, 41, (2, n)),
+                          0, ps[0] - 1)
+        w = [pow(int(a), -1, int(q)) for a, q in
+             zip(p.md_tables(level)["inv_w"], ps)]
+        half = torch.as_tensor((y * np.asarray(w)[:, None]) % ps[:, None],
+                               device="cuda").int()
+        extreme = torch.as_tensor(np.stack([ks_legs.byte_extremes(
+            ps, p.md_tables(level)["inv_w"], pick) for pick in (
+                np.full((K, n), 2), rng.integers(0, 3, (K, n)))]),
+            device="cuda").int()
+        for d in (res(ps, (2,)), half, extreme):
+            calls.append(("down", (d, down),
+                          ks_legs.ks_moddown_plain(d, down)))
+    level = p.top_level
+    kb, ka = (torch.as_tensor(np.asarray(rng.integers(0, 1 << 62, (
+        p.dnum, p.L_tot, p.n)) % np.asarray(p.all_primes)[:, None]),
+        dtype=torch.int64).int() for _ in range(2))
+    c = torch.as_tensor(rng.integers(0, 1 << 62, (level + 1, p.n)) %
+                        np.asarray(p.q_primes[:level + 1])[:, None]).int()
+    want_ks = ops_impl.keyswitch(p, Engine(p, device="cpu").tabs, c, kb, ka)
+    tabs = Engine(p, device="cuda").tabs
+    for fn in ("ks_modup_plain", "ks_moddown_plain", "vhat_frac"):
+        monkeypatch.setattr(ks_legs, fn, _boom)
+    for kind, args, want in calls:
+        counter = "launches_modup" if kind == "up" else "launches_moddown"
+        before = getattr(ks_legs, counter)
+        got = (ks_legs.ks_modup if kind == "up" else ks_legs.ks_moddown)(
+            *args)
+        assert getattr(ks_legs, counter) == before + 1
+        assert torch.equal(got, want)
+    before = (ks_legs.launches_modup, ks_legs.launches_moddown)
+    got_ks = ops_impl.keyswitch(p, tabs, c.cuda(), kb.cuda(), ka.cuda())
+    assert (ks_legs.launches_modup, ks_legs.launches_moddown) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w_ in zip(got_ks, want_ks):
+        assert torch.equal(g.cpu(), w_)
+
+
 def test_keyswitch_graph_replay_equals_eager():
     """One key-switch at prod_boot's top level (INTT, ks_modup, NTT,
     ks_inner, INTT, ks_moddown, NTT, sub_scale) captured in a CUDA graph

@@ -32,12 +32,26 @@ from aesfhe_tpu_torch.parallel.mesh import digit_pad
 # special primes, digits of 8 limbs) on N=2^10
 CHAIN_B = dict(n=1 << 10, max_level=54, scale_bits=27, num_special_primes=8,
                secret_hamming=192)
-# one wide level each: (profile, level), K = 2, 3, 6, 8
-MODUP_CASES = [("tiny", 8), ("test", 16), ("deep", 41), ("b", 54)]
+# parameter sets past one k-step of the conversion kernels (more than 8
+# primes in a digit or in the special set) and a chain with primes below
+# 2^16 (30, 15, 14, 16, 16 bits; specials of 30), all on N=2^10
+WIDE = {"k9": dict(num_special_primes=9), "k10": dict(num_special_primes=10),
+        "k16": dict(num_special_primes=16),
+        "alpha9": dict(num_special_primes=10, alpha=9)}
+WIDE = {k: dict(n=1 << 10, max_level=12, scale_bits=26, **v)
+        for k, v in WIDE.items()}
+WIDE["scale14"] = dict(n=1 << 10, max_level=4, scale_bits=14)
+# one wide level each: (profile, level), K = 2, 3, 6, 8; then digits of 9,
+# 10, 13 (one digit, K = 16) and 9 limbs (K = 10), and the small primes
+MODUP_CASES = [("tiny", 8), ("test", 16), ("deep", 41), ("b", 54),
+               ("k9", 12), ("k10", 12), ("k16", 12), ("alpha9", 12),
+               ("scale14", 4)]
 # the special-prime counts K = 2 (tiny), 3 (test), 4 (boot_tiny), 6 (deep),
-# 8 (chain b), at a level each
+# 8 (chain b), at a level each; then K = 9, 10, 16 and 10 (alpha 9), and
+# the small primes
 MODDOWN_CASES = [("tiny", 4), ("test", 10), ("boot_tiny", 30), ("deep", 20),
-                 ("b", 16)]
+                 ("b", 16), ("k9", 12), ("k10", 7), ("k16", 12),
+                 ("alpha9", 12), ("scale14", 4)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,8 +66,9 @@ def _two_torch_threads():
 @functools.lru_cache(maxsize=None)
 def _pair(name):
     """(reference params, port params, port tables on the CPU)."""
-    if name == "b":
-        jp, tp = JCKKSParams(**CHAIN_B), CKKSParams(**CHAIN_B)
+    if name == "b" or name in WIDE:
+        kw = CHAIN_B if name == "b" else WIDE[name]
+        jp, tp = JCKKSParams(**kw), CKKSParams(**kw)
     else:
         jp, tp = jget_params(name), get_params(name)
     return jp, tp, Engine(tp, device="cpu").tabs
@@ -89,14 +104,16 @@ def test_ks_decompose_matches_reference(name, level):
 
 
 @pytest.mark.parametrize("name,level,D", [("b", 54, 2), ("b", 54, 4),
-                                          ("b", 30, 4), ("deep", 41, 4)])
+                                          ("b", 30, 4), ("deep", 41, 4),
+                                          ("k9", 12, 4)])
 def test_modup_digit_ranges_match_padded_tables(name, level, D):
     """ks_modup over each rank's digit range [r*pad/D, (r+1)*pad/D) equals
     the basis extension through the reference's padded digit tables
     (`parallel/dist_keyswitch.py:_padded_digit_tables`: inv_w = 0 past the
     active digits; at level 30 of chain b and level 41 of deep the last
-    ranks hold padding only); and the port's ks_decompose(j0, j1) is the
-    full decomposition's rows, zero past the active digits."""
+    ranks hold padding only; k9's digits have 9 and 4 limbs); and the
+    port's ks_decompose(j0, j1) is the full decomposition's rows, zero past
+    the active digits."""
     _, tp, tabs = _pair(name)
     pad = digit_pad(tp.dnum, D)
     per = pad // D
@@ -163,6 +180,58 @@ def test_mod_down_matches_reference(name, level):
         want = interop.to_tensor(np.asarray(ref(
             jnp.asarray(interop.to_numpy(x)), level)), device="cpu")
         assert torch.equal(tops._mod_down_specials(tp, tabs, x, level), want)
+
+
+@pytest.fixture(scope="module", params=["k16", "scale14"])
+def keyed(request):
+    """One seeded key family (secret, public, relinearization and the step-1
+    rotation key) on each side, drawn in the same order from the same seed
+    (the reference's module RNG is put back afterwards), at k16 (one digit
+    of 13 limbs, K = 16) and scale14 (primes below 2^16)."""
+    from aesfhe_tpu.core import keys as jkeys
+    name = request.param
+    jp, tp, _ = _pair(name)
+    jeng, teng = JEngine(jp), Engine(tp, device="cpu",
+                                     rng=np.random.default_rng(5))
+    saved, jkeys._rng = jkeys._rng, np.random.default_rng(5)
+    try:
+        jsk = jeng.create_secret_key()
+        j = dict(pk=jeng.create_public_key(jsk),
+                 rlk=jeng.create_relinearization_key(jsk),
+                 rot=jeng.create_fixed_rotation_key(jsk, [1]))
+    finally:
+        jkeys._rng = saved
+    tsk = teng.create_secret_key()
+    t = dict(pk=teng.create_public_key(tsk),
+             rlk=teng.create_relinearization_key(tsk),
+             rot=teng.create_fixed_rotation_key(tsk, [1]))
+    return name, jeng, teng, j, t
+
+
+def test_relinearize_and_rotate_match_reference(keyed):
+    """Engine.relinearize (a random degree-2 ciphertext at the top level)
+    and Engine.rotate by one slot (an encryption, carried across) through
+    both packages, from the same seeded keys: the same residues."""
+    from aesfhe_tpu.core.ciphertext import Ciphertext as JCiphertext
+    from aesfhe_tpu_torch.core.ciphertext import Ciphertext
+    name, jeng, teng, j, t = keyed
+    tp = teng.params
+    assert torch.equal(t["rlk"].b, interop.to_tensor(np.asarray(j["rlk"].b),
+                                                     device="cpu"))
+    rng = np.random.default_rng(9)
+    top = tp.top_level
+    c3 = _residues(tp, tops._rows(tp, top, False), (3,), rng)
+    got = teng.relinearize(Ciphertext(_t(c3), 2.0 ** 20), t["rlk"]).data
+    want = jeng.relinearize(JCiphertext(jnp.asarray(c3, jnp.uint32),
+                                        2.0 ** 20), j["rlk"]).data
+    assert torch.equal(got, interop.to_tensor(np.asarray(want),
+                                              device="cpu"))
+    ct = teng.encrypt(rng.uniform(-1, 1, tp.slot_count), t["pk"])
+    got = teng.rotate(ct, t["rot"], 1).data
+    want = jeng.rotate(JCiphertext(jnp.asarray(interop.to_numpy(ct.data)),
+                                   ct.scale), j["rot"], 1).data
+    assert torch.equal(got, interop.to_tensor(np.asarray(want),
+                                              device="cpu"))
 
 
 def _scale_want(x, y, q, w):
@@ -344,13 +413,16 @@ def test_named_ranges_and_their_split():
 
 
 # the kernels' main-path shapes: prod_boot's levels 54, 28 and 24 (K = 8,
-# digits of 8 limbs) and bench's widest switch (level 15, K = 4)
+# digits of 8 limbs) and bench's widest switch (level 15, K = 4); then two
+# chunks (k16: one digit of 13 limbs, K = 16) and the primes below 2^16
 MODEL_CASES = [("prod_boot", 54), ("prod_boot", 28), ("prod_boot", 24),
-               ("bench", 15)]
+               ("bench", 15), ("k16", 12), ("scale14", 4)]
 
 
 @functools.lru_cache(maxsize=None)
 def _port_params(name):
+    if name in WIDE:
+        return CKKSParams(**WIDE[name])
     return bench.bench_params(16, 16) if name == "bench" else \
         get_params(name)
 
@@ -375,7 +447,9 @@ def test_digit_model_equals_plain(name, level, kind):
     32-bit fold) is torch.equal to ks_modup_plain (every digit, and a mesh
     range [J - 1, J + 1) whose last digit is padding) and to
     ks_moddown_plain (one component and two) at N = 2^9, on random inputs
-    and on inputs that maximise every byte; S_e < 2^21 and L, H < 2^30."""
+    and on inputs that maximise every byte; S_e < 2^21, L, H < 2^30 and
+    the Montgomery step's x below q 2^32 (its result canonical after one
+    addition), also chunk by chunk and for primes below 2^16."""
     p = _port_params(name)
     rng = np.random.default_rng(level)
     n = 1 << 9
@@ -400,6 +474,61 @@ def test_digit_model_equals_plain(name, level, kind):
                            ks_legs.ks_moddown_plain(x, down))
     assert peaks["S"] < 1 << 21
     assert max(peaks["L"], peaks["H"]) < 1 << 30
+    assert peaks["xq"] < 0
+
+
+def test_tables_on_the_cpu_take_any_digit():
+    """On the CPU the tables hold only the plain versions' constants: no
+    digit matrices and no fold constants, and a digit of 9 limbs or 16
+    special primes is accepted; kernel_tables() (the CPU model's, and every
+    table's on a card) builds them chunk by chunk, ceil(width / 8)
+    chunks."""
+    p = _port_params("k9")
+    up = ks_legs.ModupTables(p, 12, "cpu")
+    assert up.afrag is None and up.bfold is None
+    assert up.dig.tolist() == [[0, 9], [9, 4]] and up.nch == 2
+    assert up.conv.shape == (2, 2 * ks_legs.CHUNK, up.M)
+    down = ks_legs.ModdownTables(_port_params("k16"), 12, "cpu")
+    assert down.afrag is None and down.fold is None and down.nch == 2
+    assert down.cuts == [8]
+    MT = -(-up.M // 16)
+    assert up.kernel_tables()[0].shape == (2, 2, MT, 4, 32, 4)
+    assert down.kernel_tables()[0].shape == (2, 1, 4, 32, 4)
+    with pytest.raises(ValueError, match="at most 8"):
+        ks_legs.digit_tables(np.ones((9, 3)), [7, 11, 13], [5] * 9)
+
+
+def test_lazy_sums_reduce_by_the_primes_bound():
+    """The plain versions' lazy int64 sums reduce where the bound from the
+    actual primes would pass 2^63 - 1: every 8 products of 30-bit primes,
+    every 2 of 31-bit ones, never for 24 products of 16-bit ones; the
+    mod-down over 16 special primes (one reduction) against Python
+    integers."""
+    for bits, cuts in ((30, [8, 16]), (31, list(range(2, 24, 2))),
+                       (16, [])):
+        t = ((1 << bits) - 2) ** 2
+        assert ks_legs.lazy_reductions("x", [t] * 24, (1 << bits) - 2) == \
+            cuts
+    with pytest.raises(ValueError):
+        ks_legs.lazy_reductions("x", [1 << 63], 0)
+    _, tp, _ = _pair("k16")
+    level = 12
+    down = ks_legs.ModdownTables(tp, level, "cpu")
+    ps = [int(v) for v in tp.special_primes]
+    d = _residues(tp, range(tp.num_q, tp.L_tot), (), np.random.default_rng(3))
+    out = ks_legs.ks_moddown(_t(d), down)
+    mdt = tp.md_tables(level)
+    y = [d[i].astype(object) * int(mdt["inv_w"][i]) % ps[i] for i in range(16)]
+    vhat = torch.round(ks_legs.vhat_frac(
+        torch.as_tensor(np.stack([v.astype(np.int64) for v in y])
+                        ).to(torch.float32), down.inv_p, 16)).long()
+    vhat = vhat[0].numpy().astype(object)
+    for m in (0, 5, level):
+        qm = tp.q_primes[m]
+        conv = sum(y[i] * int(mdt["conv_w"][i, m]) for i in range(16)) % qm
+        want = (conv - vhat * int(mdt["pmod_w"][m])) % qm
+        assert torch.equal(out[m], torch.as_tensor(want.astype(np.int64)
+                                                   ).to(torch.int32))
 
 
 def test_digit_tables_fragment_order():
