@@ -761,7 +761,8 @@ class FusedBootstrap:
     def _tally(self) -> dict:
         t = dict(self.engine.counters)
         t.update({f"{k}_launches": v
-                  for k, v in kernels.launch_counts().items()})
+                  for k, v in {**kernels.launch_counts(),
+                               **kernels.variant_counts()}.items()})
         t["diag_hits"] = self.bk.diag_hits
         return t
 

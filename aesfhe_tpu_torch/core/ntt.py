@@ -23,9 +23,12 @@ Montgomery form of the data.
   constants), residue for residue.
 On a CPU tensor they compute the plain version (`ntt_fwd_plain`/
 `ntt_inv_plain`, the same arguments step by step); on a CUDA tensor they
-launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu` (design note there),
-one launch a call, or raise.  `launches_fwd`/`launches_inv` count the
-launches.
+launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu` (design note there) or
+raise: one launch a call up to N = 2^17, two from 2^18 (`TWO_PASS_MIN_LOGN`:
+the two-pass path, the residues in between in an int32 scratch of its own)
+up to 2^`MAX_LOGN`; a larger ring raises.
+`launches_fwd`/`launches_inv` count the launches, `launches_two_pass` those
+of the two-pass path among them.
 """
 from __future__ import annotations
 
@@ -39,7 +42,9 @@ from . import rns
 
 launches_fwd = 0
 launches_inv = 0
-MAX_LOGN = 17            # the kernels' largest ring (csrc/ntt.cu kMaxLog)
+launches_two_pass = 0
+MAX_LOGN = 25            # the kernels' largest ring (csrc/ntt.cu kMaxLog)
+TWO_PASS_MIN_LOGN = 18   # from here two launches a transform (kTwoPassMinLog)
 DTYPES = (torch.int32, torch.int64)
 R32 = 1 << 32            # the Montgomery radix R
 
@@ -321,7 +326,7 @@ def ntt_fwd(x: torch.Tensor, t: NTTRows, to_mont: bool = False,
     y = _launch("ntt_fwd_launch", x, t, t.tabs.k_w, t.tabs.k_wsh, to_mont,
                 out_dtype)
     global launches_fwd
-    launches_fwd += 1
+    launches_fwd += _count(x)
     return y
 
 
@@ -339,20 +344,38 @@ def ntt_inv(x: torch.Tensor, t: NTTRows, from_mont: bool = False,
     y = _launch("ntt_inv_launch", x, t, t.tabs.k_wi, t.tabs.k_wish,
                 from_mont, out_dtype)
     global launches_inv
-    launches_inv += 1
+    launches_inv += _count(x)
     return y
+
+
+def launches_per_transform(n: int) -> int:
+    """Kernel launches of one ntt_fwd/ntt_inv call on a ring of n."""
+    return 2 if n.bit_length() - 1 >= TWO_PASS_MIN_LOGN else 1
+
+
+def _count(x) -> int:
+    """A transform's launches, the two-pass path's also counted in
+    launches_two_pass."""
+    k = launches_per_transform(x.shape[-1])
+    if k == 2:
+        global launches_two_pass
+        launches_two_pass += k
+    return k
 
 
 def _launch(fn_name: str, x, t: NTTRows, w, wsh, mont: bool,
             out_dtype) -> torch.Tensor:
-    """One kernel launch on the current stream: x is read through its batch
-    and row strides (copied only when its last axis is strided), with
-    16-byte loads where its address and strides allow; no host
-    synchronisation, so it runs inside a CUDA graph capture."""
+    """One transform on the current stream (one launch, two from 2^18): x
+    is read through its batch and row strides (copied only when its last
+    axis is strided), with 16-byte loads where its address and strides
+    allow; the two-pass path takes an int32 scratch from the allocator for
+    the residues between its launches; no host synchronisation, so it runs inside a CUDA
+    graph capture."""
     L, n = x.shape[-2], x.shape[-1]
     logn = n.bit_length() - 1
     if logn > MAX_LOGN:
-        raise ValueError(f"NTT kernel: N=2^{logn} above 2^{MAX_LOGN}")
+        raise ValueError(f"NTT kernel: N=2^{logn} above the kernels' largest "
+                         f"ring 2^{MAX_LOGN} (csrc/ntt.cu kMaxLog)")
     xb = x.reshape(-1, L, n)
     if xb.stride(-1) != 1:
         xb = xb.contiguous()
@@ -362,12 +385,16 @@ def _launch(fn_name: str, x, t: NTTRows, w, wsh, mont: bool,
         return y
     vec = (xb.data_ptr() % 16 == 0 and xb.stride(0) % 4 == 0
            and xb.stride(1) % 4 == 0)
+    scratch = None
+    if logn >= TWO_PASS_MIN_LOGN:
+        scratch = torch.empty(y.shape, dtype=torch.int32, device=x.device)
     fn = getattr(_library(), fn_name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(xb.data_ptr(), xb.stride(0), xb.stride(1), xb.element_size(),
-             y.data_ptr(), y.element_size(), w.data_ptr(), wsh.data_ptr(),
-             t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(), B, L, logn,
-             int(mont), int(vec), stream)
+             y.data_ptr(), y.element_size(),
+             None if scratch is None else scratch.data_ptr(), w.data_ptr(),
+             wsh.data_ptr(), t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(),
+             B, L, logn, int(mont), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
     return y
@@ -381,7 +408,7 @@ def _library():
         for fn in (lib.ntt_fwd_launch, lib.ntt_inv_launch):
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                            ctypes.c_int] + [ctypes.c_void_p] * 4
+                            ctypes.c_int] + [ctypes.c_void_p] * 5
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.ntt_occupancy.argtypes = [ctypes.c_int,
@@ -397,20 +424,28 @@ def _library():
 
 def occupancy(logn: int) -> dict:
     """The launch a ring of 2^logn takes on the current card: blocks per
-    SM, clusters resident at once (0 on the one-block path), dynamic shared
-    memory bytes and threads a block."""
-    out = (ctypes.c_int * 4)()
+    SM, clusters resident at once (0 off the cluster path), dynamic shared
+    memory bytes and threads a block; from 2^18 those of the two-pass
+    path's column pass, and under "runs" its run pass's, with the split
+    (a, b): the column pass runs the first a stages."""
+    out = (ctypes.c_int * 8)()
     err = _library().ntt_occupancy(logn, out)
     if err != 0:
         raise RuntimeError(f"ntt_occupancy failed: CUDA error {err}")
-    return dict(blocks_per_sm=out[0], clusters=out[1], smem_bytes=out[2],
-                threads=out[3])
+    occ = dict(blocks_per_sm=out[0], clusters=out[1], smem_bytes=out[2],
+               threads=out[3])
+    if logn >= TWO_PASS_MIN_LOGN:
+        occ.update(split=(out[6], out[7]), runs=dict(
+            blocks_per_sm=out[4], smem_bytes=out[5], threads=out[3]))
+    return occ
 
 
 def bytes_moved(B: int, L: int, n: int, in_bytes: int = 8,
                 out_bytes: int = 8) -> int:
     """Least bytes a transform must move: each input word read once, each
-    output word written once (4 bytes int32, 8 int64)."""
+    output word written once (4 bytes int32, 8 int64).  The two-pass path
+    (N >= 2^18) moves each row through device memory twice by design: at
+    least twice these bytes int32 in and out."""
     return (in_bytes + out_bytes) * B * L * n
 
 

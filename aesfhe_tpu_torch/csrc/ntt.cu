@@ -35,7 +35,7 @@
 // once: 8 bytes per element int32 in and out (16 int64), against 3 32-bit
 // multiplies per butterfly (24 per element at N = 2^16: ~1.4 ps at the
 // card's multiply rate against ~2.4 ps for 8 bytes at 3.35 TB/s).  The
-// design, one launch per transform and no global scratch:
+// design, one launch per transform and no global scratch up to N = 2^17:
 //   - radix in registers: a thread holds the 2^r residues (r = 2 or 3) of
 //     one group of a pass, runs r stages on them, and writes them back;
 //     a pass is one shared-memory round trip and one barrier;
@@ -57,6 +57,26 @@
 //     shared memory; the second half's come through L2, and the grid puts
 //     the batch on its fastest axis, so the B clusters of one row run
 //     together and fetch its tables once;
+//   - N >= 2^18 (kTwoPassMinLog): a row fits no cluster of 8 (a cluster of
+//     16 is non-portable and would stop at 2^18), so the transform is two
+//     launches with the row in global memory between them, split at a stage
+//     boundary, logN = a + b with b = max(10, logN - 10): ntt_cols runs the
+//     first a stages as sub-transforms of the columns {c + 2^b k} (a block
+//     holds 32 adjacent columns, the cluster kernel's column half with
+//     ColIn/ColOut at a column stride of 2^b, its 2^a twiddles staged in
+//     shared memory), ntt_runs the last b stages on contiguous runs of 2^b
+//     (the cluster kernel's run half: RunIn/RunOut, twiddles through L2, the
+//     last store 16 bytes a thread; at least 2^13 positions a block).  The
+//     inverse runs ntt_runs first, then ntt_cols, whose stage 0 takes the
+//     folded N^-1 (and R^-1).  Between the passes the residues are int32
+//     (4 bytes an element each way, also for an int64 output) in a scratch
+//     of the wrapper's, never x or y: each launch reads its input through
+//     ld.global.nc (__ldg) under __restrict__, which holds only for a
+//     buffer that nothing writes while the kernel runs, so neither launch
+//     works in place.  It moves the row through device memory twice, so it
+//     cannot pass half the byte bound;
+//     both halves fit one block's shared memory up to a = 10 (32 x 2^10
+//     positions and 2^10 twiddles, 143 KB) and b = 15 (135 KB): kMaxLog = 25;
 //   - N <= 2^15: one block holds a whole row (several rows for N < 2^11,
 //     kTileLog), loaded and stored in a coalesced pass of its own;
 //   - the kernels read x through its batch and row strides, and a row
@@ -74,14 +94,20 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLog = 17;
 constexpr int kClusterMinLog = 16;      // from here a cluster holds a row
+constexpr int kTwoPassMinLog = 18;      // from here two launches a transform
+constexpr int kColMaxLog = 10;          // two-pass: columns of <= 2^10 points
+constexpr int kRunMinLog = 10;          // two-pass: runs of >= 2^10
+constexpr int kRunMaxLog = kClusterMinLog - 1;   // and <= 2^15 (one block)
+constexpr int kRunsTileLog = 13;        // two-pass runs: >= 2^13 a block
+constexpr int kMaxLog = kColMaxLog + kRunMaxLog;
 constexpr int kClusterLog = 3;
 constexpr int kCluster = 1 << kClusterLog;
 constexpr int kRunLog = 8;              // cluster path: runs of 2^8
@@ -323,9 +349,11 @@ struct SmemBuf {
 
 // Global memory through the column layout (the forward's first pass; with
 // to_mont the input's Montgomery factor on load).  Passes over k bits
-// (pb0 >= 5): element j is row index col(base) + (j << (pb0 + 3)).
-__device__ __forceinline__ int col_index(int p, int c0) {
-  return ((p >> kColLog) << kRunLog) | (c0 + (p & 31));
+// (pb0 >= 5): element j is row index col(base) + (j << (pb0 - 5 + lc)),
+// lc the log of the column stride (kRunLog on the cluster path, b on the
+// two-pass path).
+__device__ __forceinline__ int col_index(int p, int c0, int lc) {
+  return ((p >> kColLog) << lc) | (c0 + (p & 31));
 }
 
 template <typename Tin>
@@ -334,11 +362,12 @@ struct ColIn {
   int c0;
   uint32_t q, r, rsh;
   bool mont;
+  int lc = kRunLog;
   template <int kR>
   __device__ __forceinline__ void load(uint32_t (&v)[1 << kR], int base,
                                        int pb0) const {
-    const Tin* b = x + col_index(base, c0);
-    const int st = 1 << (pb0 + kRunLog - kColLog);
+    const Tin* b = x + col_index(base, c0, lc);
+    const int st = 1 << (pb0 + lc - kColLog);
     Tin raw[1 << kR];
 #pragma unroll
     for (int j = 0; j < (1 << kR); ++j) raw[j] = __ldg(b + j * st);
@@ -354,11 +383,12 @@ template <typename Tout>
 struct ColOut {
   Tout* __restrict__ y;
   int c0;
+  int lc = kRunLog;
   template <int kR>
   __device__ __forceinline__ void store(const uint32_t (&v)[1 << kR],
                                         int base, int pb0) const {
-    Tout* b = y + col_index(base, c0);
-    const int st = 1 << (pb0 + kRunLog - kColLog);
+    Tout* b = y + col_index(base, c0, lc);
+    const int st = 1 << (pb0 + lc - kColLog);
 #pragma unroll
     for (int j = 0; j < (1 << kR); ++j) put(b + j * st, v[j]);
   }
@@ -643,6 +673,142 @@ ntt_block(const Tin* __restrict__ x, long long x_bs, long long x_rs,
 }
 
 // ---------------------------------------------------------------------------
+// Two-pass path (N >= 2^18): the cluster kernel's two halves as two launches
+// ---------------------------------------------------------------------------
+
+// The split of a ring of 2^logn: runs of 2^b (b returned), columns of
+// 2^(logn - b) points.
+__host__ __device__ constexpr int runs_log(int logn) {
+  return logn - kColMaxLog > kRunMinLog ? logn - kColMaxLog : kRunMinLog;
+}
+
+// Positions an ntt_runs block holds, log2 (its runs: 2^(that - b)).
+__host__ __device__ constexpr int runs_tile(int lb) {
+  return lb > kRunsTileLog ? lb : kRunsTileLog;
+}
+
+constexpr int cols_bytes(int la) {
+  // 32 columns of 2^la points (padded), then the first la stages'
+  // twiddles and their companions (2^la each)
+  return ((1 << (la + kColLog)) + (1 << (la + kColLog - 5)) +
+          2 * (1 << la)) * 4;
+}
+
+template <bool kFwd, class Src, class Dst, class Ctx>
+__device__ __forceinline__ void pass_r(int r, int nbits, int pb0, int s0,
+                                       int boff, const Src& src,
+                                       const Dst& dst, const Ctx& ctx) {
+  // the two-pass path's chunks are 2 or 3 bits (block_chunks of >= 10)
+  if (r == 3) pass<3, kFwd>(nbits, pb0, s0, boff, src, dst, ctx);
+  else pass<2, kFwd>(nbits, pb0, s0, boff, src, dst, ctx);
+}
+
+// A two-pass block's passes over its 2^nbits positions: chunk i (pb0[i],
+// r[i]; the forward in order, the inverse backwards) runs the stages from
+// s_top - pb0[i] - r[i] up, its group index bits offset by the block's
+// first run h0 (shifted to the pass: stages from s_base on).  The first
+// pass loads from src, the last stores to dst, the others work in sb.
+template <bool kFwd, class Src, class Dst, class Ctx>
+__device__ __forceinline__ void chunk_passes(int cnt, const int* pb0,
+                                             const int* r, int nbits,
+                                             int s_top, int s_base, int h0,
+                                             const Src& src, const SmemBuf& sb,
+                                             const Dst& dst, const Ctx& ctx) {
+  for (int c = 0; c < cnt; ++c) {
+    const int i = kFwd ? c : cnt - 1 - c;
+    const int s0 = s_top - pb0[i] - r[i];
+    const int boff = h0 << (s0 - s_base);
+    if (c == 0)
+      pass_r<kFwd>(r[i], nbits, pb0[i], s0, boff, src, sb, ctx);
+    else if (c == cnt - 1)
+      pass_r<kFwd>(r[i], nbits, pb0[i], s0, boff, sb, dst, ctx);
+    else
+      pass_r<kFwd>(r[i], nbits, pb0[i], s0, boff, sb, sb, ctx);
+    if (c < cnt - 1) __syncthreads();
+  }
+}
+
+// The first la stages (the forward's first launch, the inverse's second)
+// on 32 adjacent columns {c0 + cl + 2^lb k} of one row: column layout
+// position k * 32 + cl, the passes of block_chunks' [5, la + 5), from
+// global memory to global memory through ColIn/ColOut at a column stride of
+// 2^lb.  Grid: B x 2^(lb-5) x L blocks, the batch fastest.  to_mont on load
+// (forward) or the folded constants (inverse's stage 0) as `mont` says.
+template <bool kFwd, typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+ntt_cols(const Tin* __restrict__ x, long long x_bs, long long x_rs,
+         Tout* __restrict__ y, const uint32_t* __restrict__ w,
+         const uint32_t* __restrict__ wsh, const uint32_t* __restrict__ rowc,
+         const int32_t* __restrict__ rows, int B, int L, int la, int lb,
+         int mont) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int nb = la + kColLog;              // positions a block, log2
+  const int logn = la + lb;
+  uint32_t* const stw = smem + (1 << nb) + (1 << (nb - 5));
+  uint32_t* const stsh = stw + (1 << la);
+  const int bi = static_cast<int>(blockIdx.x) % B;
+  const int rest = static_cast<int>(blockIdx.x) / B;
+  const int l = rest >> (lb - kColLog);
+  const int c0 = (rest & ((1 << (lb - kColLog)) - 1)) << kColLog;
+  const long long trow = rows[l];
+  const long long toff = trow << logn;
+  const uint32_t* rc = rowc + trow * kRowConsts;
+  const uint32_t q = rc[0];
+  for (int i = threadIdx.x; i < (1 << la); i += kThreads) {
+    stw[i] = __ldg(w + toff + i);
+    stsh[i] = __ldg(wsh + toff + i);
+  }
+  const Tin* xr = x + bi * x_bs + l * x_rs;
+  Tout* yr = y + ((static_cast<long long>(bi) * L + l) << logn);
+  const RowCtx<SmemTw> ctx{q, SmemTw{stw, stsh},
+                           rc + (mont ? kFoldMont : kFoldPlain)};
+  int pb0[8], r[8];
+  const int cnt = block_chunks(nb, pb0, r) - 2;      // the chunks of [5, nb)
+  __syncthreads();
+  chunk_passes<kFwd>(
+      cnt, pb0, r, nb, nb, 0, 0,
+      ColIn<Tin>{xr, c0, q, rc[kMontR], rc[kMontR + 1], kFwd && mont != 0,
+                 lb},
+      SmemBuf{smem}, ColOut<Tout>{yr, c0, lb}, ctx);
+}
+
+// The last lb stages (the forward's second launch, the inverse's first) on
+// 2^(nb-lb) contiguous runs of 2^lb of one row (nb = runs_tile(lb)): run
+// layout position hl * 2^lb + c, the passes of block_chunks(lb), from
+// global memory to global memory through RunIn/RunOut (16-byte words where
+// the pass is the lowest and `vec` allows), the twiddles through L2.  Grid:
+// B x 2^(la-nb+lb) x L blocks, the batch fastest.
+template <bool kFwd, typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+ntt_runs(const Tin* __restrict__ x, long long x_bs, long long x_rs,
+         Tout* __restrict__ y, const uint32_t* __restrict__ w,
+         const uint32_t* __restrict__ wsh, const uint32_t* __restrict__ rowc,
+         const int32_t* __restrict__ rows, int B, int L, int la, int lb,
+         int vec) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int nb = runs_tile(lb);
+  const int hlog = nb - lb;                 // runs a block, log2
+  const int logn = la + lb;
+  const int bi = static_cast<int>(blockIdx.x) % B;
+  const int rest = static_cast<int>(blockIdx.x) / B;
+  const int l = rest >> (la - hlog);
+  const int h0 = (rest & ((1 << (la - hlog)) - 1)) << hlog;
+  const long long trow = rows[l];
+  const long long toff = trow << logn;
+  const uint32_t* rc = rowc + trow * kRowConsts;
+  const uint32_t q = rc[0];
+  const Tin* xr = x + bi * x_bs + l * x_rs;
+  Tout* yr = y + ((static_cast<long long>(bi) * L + l) << logn);
+  const RowCtx<GlobalTw> ctx{q, GlobalTw{w + toff, wsh + toff},
+                             rc + kFoldPlain};
+  int pb0[8], r[8];
+  const int cnt = block_chunks(lb, pb0, r);
+  chunk_passes<kFwd>(cnt, pb0, r, nb, logn, la, h0,
+                     RunIn<Tin>{xr, h0 << lb, q, vec != 0}, SmemBuf{smem},
+                     RunOut<Tout>{yr, h0 << lb}, ctx);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -650,13 +816,54 @@ constexpr int block_bytes(int logt) {
   return ((1 << logt) + (1 << (logt - 5))) * 4;
 }
 
+// One transform of 2^logn, logn >= kTwoPassMinLog: two launches, the
+// residues in between in mid (int32 [B, L, N], contiguous, neither x nor y:
+// the second launch reads it through ld.global.nc while it writes y).
+template <bool kFwd, typename Tin, typename Tout>
+int launch_two_pass(const Tin* x, long long x_bs, long long x_rs, Tout* y,
+                    int32_t* mid, const uint32_t* w, const uint32_t* wsh,
+                    const uint32_t* rowc, const int32_t* rows, int B, int L,
+                    int logn, int mont, int vec, cudaStream_t st) {
+  const int lb = runs_log(logn);
+  const int la = logn - lb;
+  const long long rs = 1LL << logn;
+  const dim3 gc(static_cast<unsigned>(B * L) << (lb - kColLog));
+  const dim3 gr(static_cast<unsigned>(B * L) << (la - runs_tile(lb) + lb));
+  const int cb = cols_bytes(la);
+  const int rb = block_bytes(runs_tile(lb));
+  cudaError_t err;
+  if (kFwd) {
+    ntt_cols<true, Tin, int32_t><<<gc, kThreads, cb, st>>>(
+        x, x_bs, x_rs, mid, w, wsh, rowc, rows, B, L, la, lb, mont);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ntt_runs<true, int32_t, Tout><<<gr, kThreads, rb, st>>>(
+        mid, rs * L, rs, y, w, wsh, rowc, rows, B, L, la, lb, 1);
+  } else {
+    ntt_runs<false, Tin, int32_t><<<gr, kThreads, rb, st>>>(
+        x, x_bs, x_rs, mid, w, wsh, rowc, rows, B, L, la, lb, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ntt_cols<false, int32_t, Tout><<<gc, kThreads, cb, st>>>(
+        mid, rs * L, rs, y, w, wsh, rowc, rows, B, L, la, lb, mont);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kFwd, typename Tin, typename Tout>
 int launch_typed(const void* xv, long long x_bs, long long x_rs, void* yv,
-                 const uint32_t* w, const uint32_t* wsh,
+                 void* scratch, const uint32_t* w, const uint32_t* wsh,
                  const uint32_t* rowc, const int32_t* rows, int B, int L,
                  int logn, int mont, int vec, cudaStream_t st) {
   const auto* x = static_cast<const Tin*>(xv);
   auto* y = static_cast<Tout*>(yv);
+  if (logn >= kTwoPassMinLog) {
+    auto* mid = static_cast<int32_t*>(scratch);
+    if (mid == nullptr || scratch == yv || scratch == xv)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_two_pass<kFwd>(x, x_bs, x_rs, y, mid, w, wsh, rowc, rows,
+                                 B, L, logn, mont, vec, st);
+  }
   if (logn >= kClusterMinLog) {
     const dim3 grid(static_cast<unsigned>(kCluster * B * L));
     if (logn == 16)
@@ -679,9 +886,9 @@ int launch_typed(const void* xv, long long x_bs, long long x_rs, void* yv,
 
 template <bool kFwd>
 int launch(const void* x, long long x_bs, long long x_rs, int in_bytes,
-           void* y, int out_bytes, const void* w, const void* wsh,
-           const void* rowc, const void* rows, int B, int L, int logn,
-           int mont, int vec, void* stream) {
+           void* y, int out_bytes, void* scratch, const void* w,
+           const void* wsh, const void* rowc, const void* rows, int B, int L,
+           int logn, int mont, int vec, void* stream) {
   if (logn < 1 || logn > kMaxLog || B < 1 || L < 1 ||
       (in_bytes != 4 && in_bytes != 8) || (out_bytes != 4 && out_bytes != 8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -691,23 +898,35 @@ int launch(const void* x, long long x_bs, long long x_rs, int in_bytes,
   const auto* rv = static_cast<const int32_t*>(rows);
   auto st = static_cast<cudaStream_t>(stream);
   if (in_bytes == 4 && out_bytes == 4)
-    return launch_typed<kFwd, int32_t, int32_t>(x, x_bs, x_rs, y, tw, ts, rc,
-                                                rv, B, L, logn, mont, vec, st);
+    return launch_typed<kFwd, int32_t, int32_t>(x, x_bs, x_rs, y, scratch, tw,
+                                                ts, rc, rv, B, L, logn, mont,
+                                                vec, st);
   if (in_bytes == 4)
-    return launch_typed<kFwd, int32_t, long long>(x, x_bs, x_rs, y, tw, ts,
-                                                  rc, rv, B, L, logn, mont,
-                                                  vec, st);
+    return launch_typed<kFwd, int32_t, long long>(x, x_bs, x_rs, y, scratch,
+                                                  tw, ts, rc, rv, B, L, logn,
+                                                  mont, vec, st);
   if (out_bytes == 4)
-    return launch_typed<kFwd, long long, int32_t>(x, x_bs, x_rs, y, tw, ts,
-                                                  rc, rv, B, L, logn, mont,
-                                                  vec, st);
-  return launch_typed<kFwd, long long, long long>(x, x_bs, x_rs, y, tw, ts,
-                                                  rc, rv, B, L, logn, mont,
-                                                  vec, st);
+    return launch_typed<kFwd, long long, int32_t>(x, x_bs, x_rs, y, scratch,
+                                                  tw, ts, rc, rv, B, L, logn,
+                                                  mont, vec, st);
+  return launch_typed<kFwd, long long, long long>(x, x_bs, x_rs, y, scratch,
+                                                  tw, ts, rc, rv, B, L, logn,
+                                                  mont, vec, st);
 }
 
 template <bool kFwd, typename Tin, typename Tout>
 void allow_smem() {
+  // the two-pass kernels of (Tin, Tout): int32 between the passes
+  using ColsIn = std::conditional_t<kFwd, Tin, int32_t>;
+  using ColsOut = std::conditional_t<kFwd, int32_t, Tout>;
+  using RunsIn = std::conditional_t<kFwd, int32_t, Tin>;
+  using RunsOut = std::conditional_t<kFwd, Tout, int32_t>;
+  cudaFuncSetAttribute(ntt_cols<kFwd, ColsIn, ColsOut>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       cols_bytes(kColMaxLog));
+  cudaFuncSetAttribute(ntt_runs<kFwd, RunsIn, RunsOut>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       block_bytes(kRunMaxLog));
   cudaFuncSetAttribute(ntt_cluster<kFwd, 8, Tin, Tout>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        cluster_words<8>() * 4);
@@ -737,15 +956,30 @@ extern "C" int ntt_setup() {
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[0..3] for the kernel a ring of 2^logn takes: blocks per SM, clusters
-// the card can hold at once (0 on the one-block path), dynamic shared
-// memory bytes a block, threads a block.  Returns a CUDA error code.
+// out[0..3] for the kernel a ring of 2^logn takes (on the two-pass path its
+// column pass, ntt_cols): blocks per SM, clusters the card can hold at once
+// (0 off the cluster path), dynamic shared memory bytes a block, threads a
+// block; out[4..7] on the two-pass path the run pass's (ntt_runs) blocks
+// per SM and bytes a block, and the split a, b (logN = a + b; the column
+// pass runs the first a stages), else 0.  Returns a CUDA error code.
 extern "C" int ntt_occupancy(int logn, int* out) {
   if (logn < 1 || logn > kMaxLog)
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0, clusters = 0, bytes;
   cudaError_t err;
-  if (logn >= kClusterMinLog) {
+  out[4] = out[5] = out[6] = out[7] = 0;
+  if (logn >= kTwoPassMinLog) {
+    const int lb = runs_log(logn);
+    bytes = cols_bytes(logn - lb);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ntt_cols<true, int32_t, int32_t>, kThreads, bytes);
+    out[5] = block_bytes(runs_tile(lb));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[4], ntt_runs<true, int32_t, int32_t>, kThreads, out[5]);
+    out[6] = logn - lb;
+    out[7] = lb;
+  } else if (logn >= kClusterMinLog) {
     const void* fn = logn == 16
         ? reinterpret_cast<const void*>(
               ntt_cluster<true, 8, int32_t, int32_t>)
@@ -773,29 +1007,32 @@ extern "C" int ntt_occupancy(int logn, int* out) {
   return static_cast<int>(err);
 }
 
-// Each launches one kernel on `stream` and returns cudaGetLastError() (0
-// on success).  x: [B, L, N] with element strides (x_bs, x_rs, 1), in_bytes
-// 4 (int32 residues) or 8 (int64, reduced on load); y: [B, L, N]
-// contiguous, out_bytes 4 or 8; w/wsh: the forward tables (w, w_sh) for
-// ntt_fwd and the inverse ones (wi, wi_sh) for ntt_inv, [L_tot, N]; rowc
-// [L_tot, 11]; rows [L]; mont: to_mont on load (forward) or from_mont
-// folded (inverse); vec: x and its strides allow 16-byte loads.
+// Each launches one kernel on `stream` (two for N >= 2^18) and returns
+// cudaGetLastError() (0 on success).  x: [B, L, N] with element strides
+// (x_bs, x_rs, 1), in_bytes 4 (int32 residues) or 8 (int64, reduced on
+// load); y: [B, L, N] contiguous, out_bytes 4 or 8; scratch: int32 [B, L,
+// N] for N >= 2^18 (the residues between the two passes; a buffer of its
+// own, neither x nor y), else unused (may be null); w/wsh: the forward
+// tables (w, w_sh) for ntt_fwd and the inverse ones (wi, wi_sh) for
+// ntt_inv, [L_tot, N]; rowc [L_tot, 11]; rows [L]; mont: to_mont on load
+// (forward) or from_mont folded (inverse); vec: x and its strides allow
+// 16-byte loads.
 extern "C" int ntt_fwd_launch(const void* x, long long x_bs, long long x_rs,
                               int in_bytes, void* y, int out_bytes,
-                              const void* w, const void* wsh,
+                              void* scratch, const void* w, const void* wsh,
                               const void* rowc, const void* rows, int B,
                               int L, int logn, int mont, int vec,
                               void* stream) {
-  return launch<true>(x, x_bs, x_rs, in_bytes, y, out_bytes, w, wsh, rowc,
-                      rows, B, L, logn, mont, vec, stream);
+  return launch<true>(x, x_bs, x_rs, in_bytes, y, out_bytes, scratch, w, wsh,
+                      rowc, rows, B, L, logn, mont, vec, stream);
 }
 
 extern "C" int ntt_inv_launch(const void* x, long long x_bs, long long x_rs,
                               int in_bytes, void* y, int out_bytes,
-                              const void* w, const void* wsh,
+                              void* scratch, const void* w, const void* wsh,
                               const void* rowc, const void* rows, int B,
                               int L, int logn, int mont, int vec,
                               void* stream) {
-  return launch<false>(x, x_bs, x_rs, in_bytes, y, out_bytes, w, wsh, rowc,
-                       rows, B, L, logn, mont, vec, stream);
+  return launch<false>(x, x_bs, x_rs, in_bytes, y, out_bytes, scratch, w,
+                       wsh, rowc, rows, B, L, logn, mont, vec, stream);
 }

@@ -10,7 +10,8 @@ Nothing here runs at import: the CPU tests import every module.
 Each wrapper counts its kernel's launches in a module-level integer;
 `COUNTERS` names them, and `launch_counts`/`zero_launches`/`add_launches`
 read, zero and add to all of them at once (`VARIANTS`, `variant_counts`:
-the chunked conversions' share of ks_modup's and ks_moddown's).
+the chunked conversions' share of ks_modup's and ks_moddown's, the two-pass
+NTT's of ntt_fwd's and ntt_inv's).
 """
 from __future__ import annotations
 
@@ -36,10 +37,12 @@ COUNTERS = {"ks_inner": ("ks_inner", "launches"),
             "ks_moddown": ("ks_legs", "launches_moddown"),
             "sub_scale": ("ks_legs", "launches_sub_scale")}
 # of those launches, the instances that only some parameter sets reach (the
-# chunked conversions: a digit or special set of more than 8 primes);
-# zeroed with the counters above, read by `variant_counts`
+# chunked conversions: a digit or special set of more than 8 primes; the
+# two-pass NTT: rings of 2^18 and up, two launches a transform); zeroed with
+# the counters above, read by `variant_counts`
 VARIANTS = {"ks_modup_chunks": ("ks_legs", "launches_modup_chunks"),
-            "ks_moddown_chunks": ("ks_legs", "launches_moddown_chunks")}
+            "ks_moddown_chunks": ("ks_legs", "launches_moddown_chunks"),
+            "ntt_two_pass": ("ntt", "launches_two_pass")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

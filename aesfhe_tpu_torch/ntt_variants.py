@@ -95,7 +95,17 @@ struct SmemTw {
         ("SmemTw{sw, ssh}", "SmemTw{sw}"),
         ("GlobalTw{tw, tsh}", "GlobalTw{tw}"),
         ("    return GlobalTw{w + t, wsh + t};",
-         "    return GlobalTw{reinterpret_cast<const uint2*>(w) + t};")]),
+         "    return GlobalTw{reinterpret_cast<const uint2*>(w) + t};"),
+        # the two-pass kernels (N >= 2^18)
+        ("  for (int i = threadIdx.x; i < (1 << la); i += kThreads) {\n"
+         "    stw[i] = __ldg(w + toff + i);\n"
+         "    stsh[i] = __ldg(wsh + toff + i);\n  }",
+         "  for (int i = threadIdx.x; i < (1 << la); i += kThreads)\n"
+         "    reinterpret_cast<uint2*>(stw)[i] =\n"
+         "        __ldg(reinterpret_cast<const uint2*>(w) + toff + i);"),
+        ("SmemTw{stw, stsh}", "SmemTw{reinterpret_cast<const uint2*>(stw)}"),
+        ("GlobalTw{w + toff, wsh + toff}",
+         "GlobalTw{reinterpret_cast<const uint2*>(w) + toff}")]),
 }
 PAIRED = {"twiddle_pairs"}      # takes (w, w_sh) interleaved in one table
 
@@ -152,9 +162,13 @@ def launch(lib, paired: bool, fwd: bool, x, t, mont, out_dtype):
         if key not in _PAIRS:
             _PAIRS[key] = torch.stack([w, wsh], -1)
         w = _PAIRS[key]
+    scratch = (torch.empty(x.shape, dtype=torch.int32, device=x.device)
+               if n.bit_length() - 1 >= ntt.TWO_PASS_MIN_LOGN else None)
     fn = lib.ntt_fwd_launch if fwd else lib.ntt_inv_launch
     err = fn(x.data_ptr(), x.stride(0), x.stride(1), x.element_size(),
-             y.data_ptr(), y.element_size(), w.data_ptr(), wsh.data_ptr(),
+             y.data_ptr(), y.element_size(),
+             None if scratch is None else scratch.data_ptr(), w.data_ptr(),
+             wsh.data_ptr(),
              t.tabs.k_rowc.data_ptr(), t.rows_dev.data_ptr(), x.shape[0], L,
              n.bit_length() - 1, int(mont), 1,
              torch.cuda.current_stream().cuda_stream)

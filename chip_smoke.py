@@ -20,6 +20,10 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      digits over q|specials (the top level; level 29's gapped rows), a
      rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
      view, DistNTT's [128, 55, 256], one row of 2^17, and the round
+     trips; the two-pass NTT (N >= 2^18, two launches a transform) alike
+     at bench LOGN=18's decomposition [5, 21, 2^18], a rescale's
+     [2, 17, 2^18], one row outside [0, q), a strided view, one row each
+     of 2^19, 2^20 and 2^25 (the kernels' largest ring), and the round
      trips; the key-switch legs (ks_modup, ks_moddown, sub_scale; their
      ptxas registers and spills) at levels 54, 28 and 24 and bench's
      widest switch, ks_modup over the mesh's digit ranges (a padded last
@@ -31,12 +35,12 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      chain of primes below 2^16 (SMALL_PRIMES' tables, 2^16 columns), at
      the top and a middle level, on random, byte-extreme and (mod-down)
      half-integer inputs;
-  3b. key-switch phase: one relinearization and one rotation at each of
-     WIDE_SETS (N=2^16) and SMALL_PRIMES (N=2^10, the largest ring its
-     primes exist for), from seeded keys, decrypted against the encoded
-     values with the decode error stated; every key-switch kernel
-     launched, the chunked instances exactly where a digit or the special
-     set passes 8 primes;
+  3b. key-switch phase: one relinearization (of a product, rescaled) and
+     one rotation at each of WIDE_SETS (N=2^16) and SMALL_PRIMES (N=2^10,
+     the largest ring its primes exist for), from seeded keys, decrypted
+     against the encoded values with the decode error stated; every
+     key-switch kernel launched, the chunked instances exactly where a
+     digit or the special set passes 8 primes;
   4. slice phase: keygen at prod_boot (N=2^16, 55 q-primes, 8 special
      primes, dnum 7) from a seeded generator, then two bit-sliced AES-128
      rounds on 2048 random blocks from the uniform work level 2*14+1 = 29,
@@ -98,18 +102,28 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      against the AES oracle (one round under round key 1; ARK + S-box),
      launches equal to key-switches; the kernel phase also times ks_inner
      at that profile's widest switch.  The flagship phase prints the bench
-     flagship line mapped from its own result.
+     flagship line mapped from its own result;
+ 10b. large-ring phase (after the bench phase): the bitplane leg at
+     AESFHE_BENCH_LOGN=18 (8192 blocks, every one exact), the zeta leg at
+     17 (exact) and at 18 (its wrong bytes printed, not failed: the
+     reference's noise at that ring decides), the zeta step's largest
+     phase error at 16, 17 and 18, peak device memory; then the 3b check
+     at N=2^20 on LARGE_HP (decoded within 5%) and LARGE_KS (its decode
+     error printed, the reference's at that set; the card's residues held
+     against the host's plain versions); the two-pass NTT launched on every
+     one of these paths, and on no earlier one.
 Every main path (slice, bench legs, flagship with its graph replays, each
 fused replay, zeta legs, every mesh rank) zeroes the launch counts just
 before it and prints every kernel's launches, which must all be > 0, with
 one ks_moddown launch per ks_inner launch (one mod-down per key-switch),
-and none of a chunked conversion (prod_boot's digits and special set have
-8 primes).  The line before the last is a JSON object with one entry per
-kernel (ks_inner, ntt_fwd, ntt_inv, ks_modup, ks_moddown, sub_scale;
-launches summed over the slice, the bench legs, the flagship, the zeta
-legs and every rank of the mesh phase) and per chunked instance
-(ks_modup_chunks, ks_moddown_chunks; launches of the key-switch phase
-3b, the path that reaches them); the last line is
+and none of an instance of kernels.VARIANTS off its own paths (prod_boot's
+digits and special set have 8 primes, its ring 2^16).  The line before the
+last is a JSON object with one entry per kernel (ks_inner, ntt_fwd,
+ntt_inv, ks_modup, ks_moddown, sub_scale; launches summed over the slice,
+the bench legs, the large-ring legs, the flagship, the zeta legs and every
+rank of the mesh phase) and per instance (ks_modup_chunks,
+ks_moddown_chunks: launches of the key-switch phase 3b; ntt_two_pass: of
+the large-ring phase 10b, the paths that reach them); the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -167,8 +181,19 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
 # published 67 TFLOP/s float32 rate (128 lanes per SM)
 INT32_MULS_PER_S = 132 * 64 * 1.98e9
 MESH_SEED = SEED + 4
-# bench's bitplane and zeta legs: the root bench.py's default profile
+# bench's bitplane and zeta legs: the root bench.py's default profile; the
+# large-ring phase runs them at AESFHE_BENCH_LOGN=18 (the two-pass NTT) and
+# the zeta leg at 2^17 for its phase error's trend
 BENCH_LOGN, BENCH_LEVELS, BENCH_ITERS = 16, 16, 3
+LARGE_LOGN = 18
+# one relinearization, rotation and rescale at N=2^20 on each of two sets
+# the reference builds: LARGE_KS (scale 2^29, K = 2, a dense secret), whose
+# noise passes its scale there, as the reference's does
+# (tests/test_torch_large_ring.py), and LARGE_HP, prod_hp's scale 2^52 and
+# K = 6 cut to 6 levels, which decodes; the NTT kernels' largest ring,
+# 2^ntt.MAX_LOGN, in the kernel phase
+LARGE_KS = dict(n=1 << 20, max_level=6, scale_bits=29, num_special_primes=2)
+LARGE_HP = dict(n=1 << 20, max_level=6, scale_bits=52, num_special_primes=6)
 ZETA_ROUNDS = 10
 # Parameter sets past one k-step of the conversion kernels (8 primes): 9,
 # 10 and 16 special primes, and digits of 9 (alpha 9) and 16 limbs (alpha
@@ -224,12 +249,15 @@ zero_launches = kernels.zero_launches      # just before a main path runs
 read_launches = kernels.launch_counts
 
 
-def check_launches(where: str, counts: dict, chunks: bool = False):
+def check_launches(where: str, counts: dict, instances=(), variants=None):
     """Print a main path's kernel launches: every kernel must have run, and
-    the mod-down once per key-switch, as the inner product; the chunked
-    conversions (this process's counts) not at all, unless `chunks`."""
-    variants = kernels.variant_counts()
-    print(f"{where}: kernel launches {counts}, chunked {variants}",
+    the mod-down once per key-switch, as the inner product; the instances
+    of kernels.VARIANTS (`variants`, read with `counts`; by default this
+    process's counts now: the chunked conversions, the two-pass NTT) not
+    at all, unless named in `instances`."""
+    if variants is None:
+        variants = kernels.variant_counts()
+    print(f"{where}: kernel launches {counts}, instances {variants}",
           flush=True)
     if any(v <= 0 for v in counts.values()) or set(counts) != \
             set(kernels.COUNTERS):
@@ -238,9 +266,9 @@ def check_launches(where: str, counts: dict, chunks: bool = False):
     if counts["ks_moddown"] != counts["ks_inner"]:
         raise AssertionError(f"{where}: {counts['ks_moddown']} mod-downs "
                              f"for {counts['ks_inner']} inner products")
-    if not chunks and any(variants.values()):
-        raise AssertionError(f"{where}: a chunked conversion ran: "
-                             f"{variants}")
+    if any(v for k, v in variants.items() if k not in instances):
+        raise AssertionError(f"{where}: an instance ran that this path "
+                             f"does not reach: {variants}")
 
 
 def add_launches(total: dict, counts: dict):
@@ -326,10 +354,11 @@ def ntt_build_info():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "registers" in line and entry is not None:
-            kind = "ntt_cluster" if "ntt_cluster" in entry else "ntt_block"
+            kind = next(k for k in ("ntt_cluster", "ntt_cols", "ntt_runs",
+                                    "ntt_block") if k in entry)
             print(f"ptxas {kind} {entry}: {line.split(':', 1)[1].strip()}",
                   flush=True)
-    for logn in (8, 15, 16, 17):
+    for logn in (8, 15, 16, 17, 18, 19, 20, ntt.MAX_LOGN):
         print(f"NTT launch at N=2^{logn}: {ntt.occupancy(logn)}", flush=True)
 
 
@@ -404,6 +433,70 @@ def ntt_cases(params, rng, dev) -> list:
     print("round trips ntt_inv(ntt_fwd(x)) = x (int32 with the Montgomery "
           "factors folded in, and int64) at [2, 55, 65536], "
           "[128, 55, 256] and [2, 1, 131072]", flush=True)
+    return cases
+
+
+def large_ntt_cases(rng, dev) -> list:
+    """The two-pass NTT (N >= 2^18, two launches a transform) in every
+    variant of the contract, timed in the main path's: bench LOGN=18's
+    key-switch decomposition (J digits over q_0..q_top | specials) int32 in
+    and out with the Montgomery factors folded in, and int64 in and out; a
+    rescale's two components over its 17 q-rows, int64; one row with int64
+    inputs outside [0, q); a pair of limbs as a strided view; one row each
+    of 2^19, 2^20 and 2^MAX_LOGN (the kernels' largest ring); the round
+    trips ntt_inv(ntt_fwd(x)) = x at each ring."""
+    bp = bench.bench_params(LARGE_LOGN, BENCH_LEVELS)
+    tabs = ops_impl.DeviceTables(bp, dev)
+    qa = np.asarray(bp.all_primes, dtype=np.int64)
+    N, top = bp.n, bp.top_level
+    fused = [(I32, I32, True)]
+
+    def residues(shape, rows):
+        x = rng.integers(0, 1 << 62, shape) % qa[rows].reshape(-1, 1)
+        return torch.as_tensor(x, device=dev)
+
+    def as_is(x):
+        return lambda d: x.to(d)
+
+    rows = ops_impl._rows(bp, top, True)
+    J = len(bp.ks_tables(top)["groups"])
+    cases = ntt_case(f"bench 2^18 decompose level {top} J={J}",
+                     tabs.ntt.rows(rows),
+                     as_is(residues((J, len(rows), N), rows)),
+                     fused + [(I64, I64, False)])
+    full = np.arange(bp.num_q)
+    xr = residues((2, bp.num_q, N), full)
+    cases += ntt_case(f"bench 2^18 rescale 2 x {bp.num_q} rows",
+                      tabs.ntt.rows(full), as_is(xr), [(I64, I64, True)])
+    spread = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (2, 1, N)),
+                             device=dev)
+    cases += ntt_case("2^18 one row, inputs outside [0, q)",
+                      tabs.ntt.rows([top]), as_is(spread), [(I64, I64, True)],
+                      canonical=False)
+    cases += ntt_case("2^18 pair of limbs (strided view)",
+                      tabs.ntt.rows([top - 1, top]),
+                      lambda d: xr.to(d)[:, -2:], [(I32, I64, True)])
+    trips = [(tabs.ntt.rows(full), xr)]
+    for logn in (19, 20, ntt.MAX_LOGN):
+        n = 1 << logn
+        p = tuple(rns.find_ntt_primes(30, 2 * n, 1))
+        t = ntt.NTTTables(n, p)
+        big = ntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, dev).rows([0])
+        x = torch.as_tensor(rng.integers(0, p[0], (1, 1, n)), device=dev)
+        cases += ntt_case(f"one row of 2^{logn}", big, as_is(x), fused)
+        trips.append((big, x))
+    for rows, x in trips:
+        back = ntt.ntt_inv(ntt.ntt_fwd(x.int(), rows, True, I32), rows,
+                           True, I32)
+        back64 = ntt.ntt_inv(ntt.ntt_fwd(x, rows), rows)
+        if not (torch.equal(back, x.int()) and torch.equal(back64, x)):
+            raise AssertionError(f"ntt_inv(ntt_fwd(x)) != x at "
+                                 f"{tuple(x.shape)}")
+    print(f"round trips ntt_inv(ntt_fwd(x)) = x (int32 with the Montgomery "
+          f"factors folded in, and int64) at "
+          f"{[tuple(x.shape) for _, x in trips]}", flush=True)
+    del trips, tabs
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -704,63 +797,110 @@ def wide_params(name: str) -> CKKSParams:
     return _WIDE[name]
 
 
+def keyswitch_check(name: str, p: CKKSParams, decodes: bool = True):
+    """One relinearization (of a product, which the multiplication
+    rescales first) and one rotation by one slot at p on the card, from
+    seeded keys: every key-switch kernel launched (one mod-down per inner
+    product), the chunked conversions exactly where a digit at that level
+    or the special set has more than 8 primes, the two-pass NTT exactly
+    where N >= 2^18, and the results decrypted against the encoded values
+    (x uniform in [-1, 1], in [-256, 256] at scale 2^14, whose fresh noise
+    is ~1), each decode error within 5% of the largest value when
+    `decodes` (else printed only: the set's noise passes its scale; then
+    the same three operations at level 2 are held residue for residue
+    against the plain versions on the host, plain_keyswitch).  Returns the
+    instances' launches (kernels.VARIANTS) and the decode errors."""
+    t0 = time.perf_counter()
+    eng = Engine(p, device="cuda", rng=np.random.default_rng(SEED))
+    sk = eng.create_secret_key()
+    pk = eng.create_public_key(sk)
+    rlk = eng.create_relinearization_key(sk)
+    rot = eng.create_fixed_rotation_key(sk, [1])
+    amp = 1.0 if p.scale_bits > 20 else 256.0
+    x = np.random.default_rng(SEED + 2).uniform(-amp, amp, p.slot_count)
+    ct = eng.encrypt(x, pk)
+    sq = eng.multiply(ct, ct)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    sq = eng.relinearize(sq, rlk)
+    r = eng.rotate(ct, rot, 1)
+    torch.cuda.synchronize()
+    ks_s = time.perf_counter() - t0
+    counts = read_launches()
+    chunked = kernels.variant_counts()
+    check_launches(f"key-switch {name}", counts, tuple(kernels.VARIANTS),
+                   chunked)
+    want = {"ks_modup_chunks": sum(
+                ks_legs.ModupTables(p, lvl, "cpu").nch > 1
+                for lvl in (sq.level, ct.level)),
+            "ks_moddown_chunks": 2 * (p.num_special > ks_legs.CHUNK)}
+    two_pass = chunked["ntt_two_pass"]
+    if {k: chunked[k] for k in want} != want or \
+            (two_pass > 0) != (p.n.bit_length() - 1 >= ntt.TWO_PASS_MIN_LOGN):
+        raise AssertionError(f"key-switch {name}: instance launches "
+                             f"{chunked}, expected {want} and the two-pass "
+                             f"NTT exactly from 2^{ntt.TWO_PASS_MIN_LOGN}")
+    errs = {"relin": float(np.abs(eng.decrypt(sq, sk) - x * x).max()
+                           / amp ** 2),
+            "rotate": float(np.abs(eng.decrypt(r, sk) - np.roll(x, 1))
+                            .max() / amp)}
+    print(f"key-switch {name}: N={p.n}, {p.num_q} q primes "
+          f"({min(q.bit_length() for q in p.q_primes)}-"
+          f"{max(q.bit_length() for q in p.q_primes)} bits), K="
+          f"{p.num_special}, digits {[len(g) for g in p.groups]}; "
+          f"keygen and product {keygen_s:.2f} s, relinearize + rotate "
+          f"{ks_s * 1e3:.1f} ms; decode error / max value: relinearized "
+          f"square {errs['relin']:.3e}, rotation {errs['rotate']:.3e}",
+          flush=True)
+    if not all(np.isfinite(v) and (v < 0.05 or not decodes)
+               for v in errs.values()):
+        raise AssertionError(f"key-switch {name}: decode errors {errs}")
+    if not decodes:
+        plain_keyswitch(name, eng, ct, rlk, rot)
+    del eng, sk, pk, rlk, rot, ct, sq, r
+    torch.cuda.empty_cache()
+    return chunked, errs
+
+
+def plain_keyswitch(name: str, eng: Engine, ct, rlk, rot, level: int = 2):
+    """ct dropped to `level`: its product (rescaled), the product
+    relinearized and ct rotated by one slot, on the card and through the
+    plain versions on the host (an Engine on the CPU, the same keys copied
+    there), torch.equal step by step."""
+    def cpu_key(k):
+        return type(k)(k.b.cpu(), k.a.cpu(), k.cap)
+
+    ceng = Engine(eng.params, device="cpu")
+    keys = {"cuda": (rlk, rot),
+            "cpu": (cpu_key(rlk), type(rot)({g: cpu_key(k) for g, k in
+                                             rot.keys.items()}))}
+    low = eng._drop(ct, level)
+    outs = {}
+    t0 = time.perf_counter()
+    for dev, e, x in (("cuda", eng, low),
+                      ("cpu", ceng, Ciphertext(low.data.cpu(), low.scale))):
+        k_rl, k_rot = keys[dev]
+        sq = e.multiply(x, x)
+        outs[dev] = (sq, e.relinearize(sq, k_rl), e.rotate(x, k_rot, 1))
+    for what, a, b in zip(("product", "relinearization", "rotation"),
+                          outs["cuda"], outs["cpu"]):
+        if not torch.equal(a.data.cpu(), b.data) or a.scale != b.scale:
+            raise AssertionError(f"key-switch {name}: the {what} at level "
+                                 f"{level} differs from the plain versions")
+    print(f"key-switch {name}: at level {level} the product (rescaled), its "
+          f"relinearization and the rotation equal the plain versions' on "
+          f"the host residue for residue ({time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+
+
 def keyswitch_phase() -> dict:
-    """One relinearization (of a product) and one rotation by one slot at
-    each of WIDE_SETS and SMALL_PRIMES on the card, from seeded keys:
-    every key-switch kernel launched (one mod-down per inner product),
-    the chunked conversions exactly where a digit at that level or the
-    special set has more than 8 primes, and the results decrypted against
-    the encoded values (x uniform in [-1, 1], in [-256, 256] at scale
-    2^14, whose fresh noise is ~1), each decode error within 5% of the
-    largest value.  Returns the chunked instances' launches summed."""
+    """keyswitch_check at each of WIDE_SETS and SMALL_PRIMES; returns the
+    instances' launches summed."""
     total = dict.fromkeys(kernels.VARIANTS, 0)
     for name in (*WIDE_SETS, "scale 2^14"):
-        p = wide_params(name)
-        t0 = time.perf_counter()
-        eng = Engine(p, device="cuda", rng=np.random.default_rng(SEED))
-        sk = eng.create_secret_key()
-        pk = eng.create_public_key(sk)
-        rlk = eng.create_relinearization_key(sk)
-        rot = eng.create_fixed_rotation_key(sk, [1])
-        amp = 1.0 if p.scale_bits > 20 else 256.0
-        x = np.random.default_rng(SEED + 2).uniform(-amp, amp, p.slot_count)
-        ct = eng.encrypt(x, pk)
-        sq = eng.multiply(ct, ct)
-        torch.cuda.synchronize()
-        keygen_s = time.perf_counter() - t0
-        zero_launches()
-        t0 = time.perf_counter()
-        sq = eng.relinearize(sq, rlk)
-        r = eng.rotate(ct, rot, 1)
-        torch.cuda.synchronize()
-        ks_s = time.perf_counter() - t0
-        counts = read_launches()
-        chunked = kernels.variant_counts()
-        check_launches(f"key-switch {name}", counts, chunks=True)
-        want = {"ks_modup_chunks": sum(
-                    ks_legs.ModupTables(p, lvl, "cpu").nch > 1
-                    for lvl in (sq.level, ct.level)),
-                "ks_moddown_chunks": 2 * (p.num_special > ks_legs.CHUNK)}
-        if chunked != want:
-            raise AssertionError(f"key-switch {name}: chunked launches "
-                                 f"{chunked}, expected {want}")
-        errs = {"relin": float(np.abs(eng.decrypt(sq, sk) - x * x).max()
-                               / amp ** 2),
-                "rotate": float(np.abs(eng.decrypt(r, sk) - np.roll(x, 1))
-                                .max() / amp)}
-        print(f"key-switch {name}: N={p.n}, {p.num_q} q primes "
-              f"({min(q.bit_length() for q in p.q_primes)}-"
-              f"{max(q.bit_length() for q in p.q_primes)} bits), K="
-              f"{p.num_special}, digits {[len(g) for g in p.groups]}; "
-              f"keygen and product {keygen_s:.2f} s, relinearize + rotate "
-              f"{ks_s * 1e3:.1f} ms; decode error / max value: relinearized "
-              f"square {errs['relin']:.3e}, rotation {errs['rotate']:.3e}",
-              flush=True)
-        if not all(np.isfinite(v) and v < 0.05 for v in errs.values()):
-            raise AssertionError(f"key-switch {name}: decode errors {errs}")
-        add_launches(total, chunked)
-        del eng, sk, pk, rlk, rot, ct, sq, r
-        torch.cuda.empty_cache()
+        add_launches(total, keyswitch_check(name, wide_params(name))[0])
     return total
 
 
@@ -1151,58 +1291,120 @@ def zeta_phase() -> list[dict]:
     return [fwd, inv, ten]
 
 
-def bench_phase() -> int:
-    """bench's bitplane and zeta legs in process (no CPU leg): each leg's
-    line printed, its output held against the AES oracle, launches equal to
-    key-switches over the warm-up and the timed iterations, both NTT
-    kernels launched.  Returns each kernel's launches."""
+def bench_leg(mode: str, logn: int, iters: int, exact: bool = True):
+    """bench's `mode` leg at N=2^logn (BENCH_LEVELS levels) in process, no
+    CPU leg: its line printed, its output held against the AES oracle
+    (wrong bytes fail the phase when `exact`; else they are printed),
+    launches equal to key-switches over the warm-up and the timed
+    iterations, every kernel launched, the two-pass NTT exactly from 2^18.
+    Returns (each kernel's launches, the instances', a record: blocks/s,
+    wrong bytes, the zeta step's largest phase error, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    leg = bench.SETUPS[mode](logn, BENCH_LEVELS, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng = leg.wrap.engine
+    eng.reset_counters()
+    zero_launches()
+    bps, stats, out, leg = bench.run_leg(mode, logn, BENCH_LEVELS, iters,
+                                         "cuda", leg=leg)
+    counts = read_launches()
+    variants = kernels.variant_counts()
+    launches = counts["ks_inner"]
+    counters = dict(eng.counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = bench.check_leg(leg, out)
+    err, say = None, ""
+    if mode == "zeta":
+        hi, lo = split_nibbles(leg.want)
+        vals = [leg.wrap.decrypt(out.hi), leg.wrap.decrypt(out.lo)]
+        if not all(v.shape == (len(leg.want),) and np.all(np.isfinite(v))
+                   for v in vals):
+            raise AssertionError(f"bench zeta 2^{logn}: decrypted nibbles "
+                                 f"are not finite or mis-shaped")
+        err = max(phase_error(vals[0], hi), phase_error(vals[1], lo))
+        say = f", max phase error {err:.3e} zeta16 steps"
+    print(json.dumps(bench.leg_record(mode, leg.blocks, bps, stats, 0.0)),
+          flush=True)
+    print(f"bench {mode} at N=2^{logn}: keygen and encryption {setup_s:.2f} "
+          f"s; {iters + 1} steps (warm-up included): engine counters "
+          f"{counters}, ks_inner launches {launches}; {bad} of "
+          f"{len(leg.want)} bytes wrong{say}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    if bad and exact:
+        raise AssertionError(f"bench {mode}: {bad} of {len(leg.want)} "
+                             f"bytes differ from the AES oracle")
+    if launches <= 0 or launches != counters["keyswitch"]:
+        raise AssertionError(f"bench {mode}: ks_inner launched "
+                             f"{launches} times for "
+                             f"{counters['keyswitch']} key-switches")
+    large = logn >= ntt.TWO_PASS_MIN_LOGN
+    check_launches(f"bench {mode} at N=2^{logn}", counts,
+                   ("ntt_two_pass",) if large else (), variants)
+    if large and variants["ntt_two_pass"] <= 0:
+        raise AssertionError(f"bench {mode} at N=2^{logn}: the two-pass NTT "
+                             f"did not run")
+    del leg, out, eng
+    torch.cuda.empty_cache()
+    return counts, variants, dict(bps=bps, bad=bad, err=err, peak=peak)
+
+
+def bench_phase():
+    """bench's bitplane and zeta legs at BENCH_LOGN (bench_leg, every byte
+    exact).  Returns each kernel's launches and the zeta step's largest
+    phase error."""
     total = dict.fromkeys(kernels.COUNTERS, 0)
     for mode in ("bitplane", "zeta"):
-        t0 = time.perf_counter()
-        leg = bench.SETUPS[mode](BENCH_LOGN, BENCH_LEVELS, "cuda")
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        eng = leg.wrap.engine
-        eng.reset_counters()
-        zero_launches()
-        bps, stats, out, leg = bench.run_leg(mode, BENCH_LOGN, BENCH_LEVELS,
-                                             BENCH_ITERS, "cuda", leg=leg)
-        counts = read_launches()
-        launches = counts["ks_inner"]
-        counters = dict(eng.counters)
-        bad = bench.check_leg(leg, out)
-        err = ""
-        if mode == "zeta":
-            hi, lo = split_nibbles(leg.want)
-            err = max(phase_error(leg.wrap.decrypt(out.hi), hi),
-                      phase_error(leg.wrap.decrypt(out.lo), lo))
-            err = f", max phase error {err:.3e} zeta16 steps"
-        print(json.dumps(bench.leg_record(mode, leg.blocks, bps, stats, 0.0)),
-              flush=True)
-        print(f"bench {mode}: keygen and encryption {setup_s:.2f} s; "
-              f"{BENCH_ITERS + 1} steps (warm-up included): engine counters "
-              f"{counters}, ks_inner launches {launches}; {bad} of "
-              f"{len(leg.want)} bytes wrong{err}", flush=True)
-        if bad:
-            raise AssertionError(f"bench {mode}: {bad} of {len(leg.want)} "
-                                 f"bytes differ from the AES oracle")
-        if launches <= 0 or launches != counters["keyswitch"]:
-            raise AssertionError(f"bench {mode}: ks_inner launched "
-                                 f"{launches} times for "
-                                 f"{counters['keyswitch']} key-switches")
-        check_launches(f"bench {mode}", counts)
+        counts, _, rec = bench_leg(mode, BENCH_LOGN, BENCH_ITERS)
         add_launches(total, counts)
-        del leg, out, eng
-        torch.cuda.empty_cache()
-    return total
+    return total, rec["err"]
+
+
+def large_ring_phase(zeta16_err: float):
+    """The rings of the two-pass NTT on the main path: bench's bitplane leg
+    at LOGN=18 (every block exact) and its zeta leg at 18 (wrong bytes and
+    phase error printed; the leg at 17 too, for the phase error's trend
+    beside 16's), then keyswitch_check at N=2^20 on LARGE_HP (decoded) and
+    LARGE_KS (held residue for residue against the host's plain versions).
+    Returns each kernel's launches and the instances' (the two-pass
+    NTT's)."""
+    total = dict.fromkeys(kernels.COUNTERS, 0)
+    inst = dict.fromkeys(kernels.VARIANTS, 0)
+    trend = {BENCH_LOGN: (zeta16_err, 0)}
+    for mode, logn, exact in (("bitplane", LARGE_LOGN, True),
+                              ("zeta", LARGE_LOGN - 1, True),
+                              ("zeta", LARGE_LOGN, False)):
+        counts, variants, rec = bench_leg(mode, logn, BENCH_ITERS, exact)
+        add_launches(total, counts)
+        add_launches(inst, variants)
+        if mode == "zeta":
+            trend[logn] = (rec["err"], rec["bad"])
+    print("zeta step's largest phase error (zeta16 steps; 0.5 decodes "
+          "wrong) and wrong bytes by ring: " + ", ".join(
+              f"2^{k} {e:.3e} ({b} wrong)" for k, (e, b) in
+              sorted(trend.items())), flush=True)
+    for name, kw, decodes in (("LARGE_HP", LARGE_HP, True),
+                              ("LARGE_KS", LARGE_KS, False)):
+        chunked, _ = keyswitch_check(name, CKKSParams(**kw), decodes)
+        add_launches(inst, chunked)
+    print("LARGE_KS: its decode errors are the reference's (the same set at "
+          "N=2^16 through both packages, "
+          "tests/test_torch_large_ring.py::"
+          "test_large_ks_decode_error_is_the_references)", flush=True)
+    print(f"two-pass NTT launches over this phase: {inst['ntt_two_pass']} "
+          f"(0 on every earlier phase)", flush=True)
+    return total, inst
 
 
 def finish(card: str, cases: list, top: dict, ntt_shapes: list,
-           legs: list, launches: dict, chunk_launches: dict) -> int:
+           legs: list, launches: dict, instances: dict) -> int:
     """The closing lines: the kernels line (each kernel's `launches` summed
-    over the main paths run, the chunked instances' over the key-switch
-    phase; ms, plain_ms and bound_ms of its widest shape, and every shape
-    timed under "shapes"), the card, the contract's last line."""
+    over the main paths run, the instances' (kernels.VARIANTS) over the
+    phases that reach them: the chunked conversions' the key-switch phase,
+    the two-pass NTT's the large-ring phase; ms, plain_ms and bound_ms of
+    its widest shape, and every shape timed under "shapes"), the card, the
+    contract's last line."""
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
           flush=True)
     entries = [dict(
@@ -1224,6 +1426,18 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
             library_ms=None, shapes=mine))
+    # the two-pass instance of both (N >= 2^18): its widest shape is bench
+    # LOGN=18's decomposition, forward
+    large = [c for c in ntt_shapes
+             if c["N"] >= 1 << ntt.TWO_PASS_MIN_LOGN]
+    entries.append(dict(
+        name="ntt_two_pass", route="cuda",
+        source="aesfhe_tpu_torch/csrc/ntt.cu",
+        replaces="aesfhe_tpu/core/mxu_ntt.py:239",
+        launches=instances["ntt_two_pass"],
+        max_abs_err=max(c["max_abs_err"] for c in large), ms=large[0]["ms"],
+        plain_ms=large[0]["plain_ms"], bound_ms=large[0]["bound_ms"],
+        bound_by=large[0]["bound_by"], library_ms=None, shapes=large))
     # ks_legs.cu's kernels; no single PyTorch call computes any of them
     for name, line_no in (("ks_modup", 497), ("ks_moddown", 697),
                           ("sub_scale", 760), ("ks_modup_chunks", 497),
@@ -1238,7 +1452,7 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             source="aesfhe_tpu_torch/csrc/ks_legs.cu",
             replaces=f"aesfhe_tpu/core/ops_impl.py:{line_no}",
             launches=launches[name] if name in launches else
-            chunk_launches[name],
+            instances[name],
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
@@ -1300,7 +1514,7 @@ def main(argv=None) -> int:
     # BENCH_LEVELS (the first product rescales before it relinearizes)
     cases.append(ks_inner_case(bench.bench_params(BENCH_LOGN, BENCH_LEVELS),
                                BENCH_LEVELS - 1, None, rng, dev))
-    ntt_shapes = ntt_cases(params, rng, dev)
+    ntt_shapes = ntt_cases(params, rng, dev) + large_ntt_cases(rng, dev)
     legs = ks_legs_cases(params, rng, dev)
     if baseline is not None:
         legs_variants.compare(baseline)
@@ -1378,7 +1592,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("bench")
-    add_launches(total, bench_phase())
+    counts, zeta16_err = bench_phase()
+    add_launches(total, counts)
+
+    phase("large ring (the two-pass NTT)")
+    counts, large_inst = large_ring_phase(zeta16_err)
+    add_launches(total, counts)
 
     phase("flagship")
     torch.cuda.reset_peak_memory_stats()
@@ -1489,6 +1708,7 @@ def main(argv=None) -> int:
     # ten zeta rounds need the time
     phase("mesh")
     add_launches(total, mesh_phase(1)["launches"])
+    add_launches(chunk_launches, large_inst)
     return finish(card, cases, top, ntt_shapes, legs, total, chunk_launches)
 
 

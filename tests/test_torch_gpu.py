@@ -61,11 +61,15 @@ def _ntt_rows_case(rows_obj, shape, q, rng, spread=False, view=None):
         for outd in (torch.int32, torch.int64):
             for mont in (False, True):
                 f0, i0 = ntt.launches_fwd, ntt.launches_inv
+                t0 = ntt.launches_two_pass
                 got = ntt.ntt_fwd(xi, rows_obj, mont, outd)
                 inv = ntt.ntt_inv(xi, rows_obj, mont, outd)
                 torch.cuda.synchronize()
-                assert (ntt.launches_fwd, ntt.launches_inv) == (f0 + 1,
-                                                                i0 + 1)
+                k = ntt.launches_per_transform(xi.shape[-1])
+                assert (ntt.launches_fwd, ntt.launches_inv) == (f0 + k,
+                                                                i0 + k)
+                assert ntt.launches_two_pass - t0 == (2 * k if k == 2
+                                                      else 0)
                 assert got.dtype == inv.dtype == outd
                 xc = xi.cpu()
                 assert torch.equal(got.cpu(), ntt.ntt_fwd_plain(
@@ -144,6 +148,94 @@ def test_ntt_kernel_equals_plain():
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("logn,shape", [(18, (2, 3)), (19, (2, 2)),
+                                        (20, (1, 2)), (21, (1, 2)),
+                                        (25, (1, 1))])
+def test_two_pass_ntt_kernel_equals_plain(logn, shape):
+    """The two-pass path (N >= 2^18, two launches a transform) torch.equal
+    to the plain versions in every variant of the contract (int32/int64 in
+    and out, the Montgomery factors folded in or not; int64 inputs outside
+    [0, q)), rows in another order than the tables'; at 2^18 also through
+    a strided view; the round trips, plain and fused; and a fused forward
+    to int32 and an inverse to int64 (each with an int32 scratch of its own
+    between its launches) captured in one CUDA graph, replayed on a new
+    input, equal to eager.  2^25 is the kernels'
+    largest ring (ntt.MAX_LOGN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert ntt.MAX_LOGN == 25
+    rng = np.random.default_rng(logn)
+    tr, q = _ring_rows(logn, shape[1])
+    x, f = _ntt_rows_case(tr, shape + (1 << logn,), q, rng)
+    assert torch.equal(ntt.ntt_inv(f, tr), x)
+    _ntt_rows_case(tr, shape + (1 << logn,), q, rng, spread=True)
+    if logn == 18:
+        _ntt_rows_case(tr.tabs.rows([0, 1]), (2, 3, 1 << logn), q[::-1], rng,
+                       view=lambda a: a[:, :2])
+    x32 = x.int()
+    back = ntt.ntt_inv(ntt.ntt_fwd(x32, tr, True, torch.int32), tr, True,
+                       torch.int32)
+    assert torch.equal(back, x32)
+    src = x32.clone()
+    want = ntt.ntt_fwd(x32.flip(0), tr, True, torch.int32)
+    want64 = ntt.ntt_inv(x32.flip(0), tr, True, torch.int64)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ntt.ntt_fwd(src, tr, True, torch.int32)
+        out64 = ntt.ntt_inv(src, tr, True, torch.int64)
+    src.copy_(x32.flip(0))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(out64, want64)
+
+
+def test_ntt_limit_and_occupancy():
+    """A ring above 2^MAX_LOGN raises before any launch, with the limit in
+    the message; ntt.occupancy reports both passes of the two-pass path
+    (the split a + b = logN, each pass resident), one launch below 2^18,
+    and raises above the limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 1 << (ntt.MAX_LOGN + 1)
+    zero = np.zeros((1, n), dtype=np.uint32)
+    d = ntt.DeviceNTT(zero, zero, [1], [2013265921], "cuda").rows([0])
+    x = torch.zeros((1, n), dtype=torch.int64, device="cuda")
+    f0 = ntt.launches_fwd
+    with pytest.raises(ValueError, match=f"above the kernels' largest ring "
+                                         f"2\\^{ntt.MAX_LOGN}"):
+        ntt.ntt_fwd(x, d)
+    assert ntt.launches_fwd == f0
+    del d, x
+    torch.cuda.empty_cache()
+    for logn, split in ((18, (8, 10)), (20, (10, 10)), (25, (10, 15))):
+        occ = ntt.occupancy(logn)
+        assert occ["split"] == split and sum(split) == logn
+        assert occ["blocks_per_sm"] >= 1 and occ["runs"]["blocks_per_sm"] >= 1
+        assert occ["smem_bytes"] <= 232448 >= occ["runs"]["smem_bytes"]
+    assert "runs" not in ntt.occupancy(17)
+    with pytest.raises(RuntimeError, match="ntt_occupancy"):
+        ntt.occupancy(ntt.MAX_LOGN + 1)
+
+
+def test_bitplane_leg_at_2_18_exact():
+    """bench's bitplane leg at AESFHE_BENCH_LOGN=18 on the card (8192
+    blocks, one full middle round): every byte equals the AES oracle, one
+    ks_inner launch per key-switch, the two-pass NTT launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch import bench, kernels
+    leg = bench.SETUPS["bitplane"](18, 16, "cuda")
+    eng = leg.wrap.engine
+    eng.reset_counters()
+    kernels.zero_launches()
+    _, _, out, leg = bench.run_leg("bitplane", 18, 16, 1, "cuda", leg=leg)
+    assert leg.blocks == 8192
+    assert bench.check_leg(leg, out) == 0
+    assert ks_inner.launches == eng.counters["keyswitch"] > 0
+    assert kernels.variant_counts()["ntt_two_pass"] > 0
 
 
 def test_fused_bootstrap_graph_equals_eager():

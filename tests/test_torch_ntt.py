@@ -5,13 +5,16 @@ CUDA kernels' pass schedule, on the CPU, against the reference.
   non-contiguous Q.P row set, a leading batch axis) are torch.equal to
   `aesfhe_tpu.core.ntt.ntt_fwd`/`ntt_inv` on the tiny and test profiles,
   also on int64 inputs outside [0, q) (the kernels reduce on load, as the
-  plain version's floor mod does);
+  plain version's floor mod does), and at N=2^18 on bench.py's profile;
 - `kernel_model`, a torch transcription of `csrc/ntt.cu` (its pass split,
   block tiling, strided and contiguous index maps, twiddle index per
   stage, 32-bit Shoup arithmetic and the inverse's N^-1 folded into its
   last stage) over the tables `ntt.kernel_tables` uploads, equals the
   reference's host NTT for N = 2^4 ... 2^13 on two limbs, with the kernels'
-  own tile and one-pass sizes and with small ones that split every N;
+  own tile and one-pass sizes and with small ones that split every N; the
+  cluster path (2^16, 2^17) and the two-pass path (2^18, 2^20, 2^21) at
+  the kernels' own sizes equal the plain version, their shared-memory
+  accesses free of bank conflicts;
 - the wrappers' argument checks, and no module but core/ntt.py calls the
   plain versions.
 """
@@ -25,13 +28,17 @@ import torch
 
 from aesfhe_tpu.core import ntt as jntt
 from aesfhe_tpu.core import rns as jrns
+from aesfhe_tpu.core.params import CKKSParams as JCKKSParams
 from aesfhe_tpu.core.params import get_params as jparams
 from aesfhe_tpu_torch.core import ntt as tntt
 from aesfhe_tpu_torch.core import ops_impl, rns
+from aesfhe_tpu_torch.core.params import CKKSParams
 from aesfhe_tpu_torch.core.params import get_params as tparams
 
 MASK = 0xFFFFFFFF
 PKG = pathlib.Path(__file__).resolve().parent.parent / "aesfhe_tpu_torch"
+# bench.py's profile at AESFHE_BENCH_LOGN=18 (the two-pass path's ring)
+BENCH18 = dict(n=1 << 18, max_level=16, scale_bits=28, num_special_primes=4)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,12 +74,42 @@ def _inputs(rng, shape, q, spread: bool):
     return rng.integers(-(1 << 31), 1 << 31, shape)
 
 
-@pytest.mark.parametrize("profile", ["tiny", "test"])
+def _large_ring_case():
+    """bench's profile at N=2^18: two rows of a key-switch basis across
+    its gap (q_5 and the first special prime), a batch of 2, canonical and
+    spread inputs, through ntt_fwd/ntt_inv and ntt_rows/intt_rows."""
+    p, jp = CKKSParams(**BENCH18), JCKKSParams(**BENCH18)
+    level = 5
+    rows = ops_impl._rows(p, level, True)[level:level + 2]
+    assert rows[1] - rows[0] > 1
+    tr = ops_impl.DeviceTables(p, "cpu").rows(rows)
+    q = np.asarray(p.all_primes, dtype=np.int64)[rows]
+    rng = np.random.default_rng(18)
+    for spread in (False, True):
+        x = _inputs(rng, (2, 2, p.n), q, spread)
+        xr = (x % q.reshape(-1, 1)).astype(np.uint32)
+        xt = torch.as_tensor(x)
+        want = _jref(xr, rows, jp).astype(np.int64)
+        fwd = tntt.ntt_fwd(xt, tr.ntt)
+        assert np.array_equal(fwd.numpy(), want)
+        assert torch.equal(ops_impl.ntt_rows(xt, tr), fwd)
+        want = _jref(xr, rows, jp, inverse=True).astype(np.int64)
+        inv = tntt.ntt_inv(xt, tr.ntt)
+        assert np.array_equal(inv.numpy(), want)
+        assert torch.equal(ops_impl.intt_rows(xt, tr), inv)
+        assert np.array_equal(ops_impl.intt_rows(fwd, tr).numpy(), xr)
+
+
+@pytest.mark.parametrize("profile", ["tiny", "test", "bench18"])
 def test_wrappers_match_reference(profile):
     """ntt_fwd/ntt_inv on CPU tensors over every prime (a leading batch
     axis), and ops_impl.ntt_rows/intt_rows over a non-contiguous Q.P row
     set, torch.equal to the reference; inputs outside [0, q) give the
-    reference's transform of x mod q; ntt_inv(ntt_fwd(x)) = x mod q."""
+    reference's transform of x mod q; ntt_inv(ntt_fwd(x)) = x mod q.
+    bench18: the large ring (N=2^18, bench.py's AESFHE_BENCH_LOGN=18
+    profile) on two rows across the key-switch basis' gap."""
+    if profile == "bench18":
+        return _large_ring_case()
     p, jp = tparams(profile), jparams(profile)
     t = p.tables
     rng = np.random.default_rng(21)
@@ -113,8 +150,11 @@ def test_wrappers_match_reference(profile):
 # The kernels' schedule, transcribed from csrc/ntt.cu
 # ---------------------------------------------------------------------------
 
-# csrc/ntt.cu's sizes: kClusterMinLog, kClusterLog, kRunLog, kTileLog
-KERNEL = dict(cluster_min_log=16, cluster_log=3, run_log=8, tile_log=11)
+# csrc/ntt.cu's sizes: kClusterMinLog, kClusterLog, kRunLog, kTileLog; the
+# two-pass path's kTwoPassMinLog, kColMaxLog, kRunMinLog, kRunsTileLog
+KERNEL = dict(cluster_min_log=16, cluster_log=3, run_log=8, tile_log=11,
+              two_pass_min_log=18, col_max_log=10, run_min_log=10,
+              runs_tile_log=13)
 # small ones: every N from 2^4 through the cluster path (2 blocks, runs of
 # 2^(logN/2)), the one-block path with one row a block
 SMALL = dict(cluster_min_log=4, cluster_log=1, run_log=None, tile_log=3)
@@ -379,12 +419,122 @@ def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
     return out
 
 
+def _pass_blocks(nbits, pb0, r, s0, boffs, load, store, q, tw, f, fwd,
+                 banks, seen):
+    """_pass on K blocks at once (the two-pass kernels' grid): each block
+    has the same groups, block k's group index bits offset by boffs[k];
+    load(pos [G, R]) -> (values [K, G, R], smem addresses or None),
+    store(pos, values) -> addresses or None; tw(ti [K*G]) -> (w, wsh)."""
+    assert not banks or pb0 >= 5 or pb0 + r <= 5
+    base = _groups(nbits, pb0, r)
+    pos = base[:, None] + (torch.arange(1 << r) << pb0)[None]
+    assert torch.equal(torch.sort(pos.reshape(-1)).values,
+                       torch.arange(1 << nbits))
+    gb = ((base >> (pb0 + r)) & ((1 << s0) - 1))[None] + boffs[:, None]
+    v, addr = load(pos)
+    if banks and addr is not None:
+        assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
+    K, G, R = v.shape
+    v = _radix(v.reshape(K * G, R), r, s0, gb.reshape(-1), q, tw, f, fwd)
+    addr = store(pos, v.reshape(K, G, R))
+    if banks and addr is not None:
+        assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
+    seen.append((pb0, r, s0))
+
+
+def two_pass_split(logn, sizes=KERNEL):
+    """csrc/ntt.cu runs_log: (a, b), runs of 2^b, columns of 2^a."""
+    b = max(sizes["run_min_log"], logn - sizes["col_max_log"])
+    return logn - b, b
+
+
+def _model_two_pass(y0, tab, fwd, logn, sizes, banks, seen):
+    """ntt_cols and ntt_runs (ntt_fwd: cols then runs, ntt_inv: runs then
+    cols) over rows y0 [R, N], the residues in between in `mid`.  ntt_cols:
+    2^(b-5) blocks a row, block k the columns from 32 k (column layout k'
+    * 32 + cl, row index (k' << b) | (32 k + cl)), the passes of
+    block_chunks' [5, a + 5), the twiddles below 2^a (staged); ntt_runs:
+    2^(a-h) blocks a row of 2^h runs of 2^b (2^(h+b) = max(2^b,
+    2^runs_tile_log) positions), block k's runs from h0 = k 2^h, the passes
+    of block_chunks(b), group bits offset by h0 << (b - pb0 - r), the
+    twiddles from 2^a up."""
+    R, n = y0.shape
+    la, lb = two_pass_split(logn, sizes)
+    nbc = la + 5
+    nbr = max(lb, sizes["runs_tile_log"])
+    hlog = nbr - lb
+    col_chunks, run_chunks = block_chunks(nbc)[:-2], block_chunks(lb)
+    mid = torch.full_like(y0, -1)
+    out = torch.full_like(y0, -1)
+
+    def blocks(src, dst, row, nbits, gidx, chunks, s_top, s_base, h0, tw):
+        K = h0.numel()
+        words = _pad((1 << nbits) - 1) + 1
+        buf = torch.full((K, words), -1, dtype=torch.int64)
+
+        def smem_load(pos):
+            a = _pad(pos)
+            return buf[:, a], a
+
+        def smem_store(pos, v):
+            a = _pad(pos)
+            buf[:, a] = v
+            return a
+
+        def glob_load(pos):
+            return src[row, gidx(pos)], None
+
+        def glob_store(pos, v):
+            dst[row, gidx(pos)] = v
+
+        order = chunks if fwd else chunks[::-1]
+        for i, (pb0, r) in enumerate(order):
+            s0 = s_top - pb0 - r
+            _pass_blocks(nbits, pb0, r, s0, h0 << (s0 - s_base),
+                         glob_load if i == 0 else smem_load,
+                         glob_store if i == len(order) - 1 else smem_store,
+                         tab["q"][row], lambda ti: tw(row, ti),
+                         [c[row] for c in tab["fold"]], fwd, banks, seen)
+
+    def small_tw(row, ti):              # staged: the first a stages' only
+        assert int(ti.max()) < 1 << la
+        return tab["w"][row, ti], tab["wsh"][row, ti]
+
+    def big_tw(row, ti):                # through L2: the last b stages'
+        assert int(ti.min()) >= 1 << la
+        return tab["w"][row, ti], tab["wsh"][row, ti]
+
+    def cols(src, dst):
+        c0 = torch.arange(1 << (lb - 5))[:, None, None] << 5
+        for row in range(R):
+            blocks(src, dst, row, nbc,
+                   lambda pos: ((pos >> 5) << lb)[None] | (c0 + (pos & 31)),
+                   col_chunks, nbc, 0, torch.zeros_like(c0.reshape(-1)),
+                   small_tw)
+
+    def runs(src, dst):
+        h0 = torch.arange(1 << (la - hlog)) << hlog
+        for row in range(R):
+            blocks(src, dst, row, nbr,
+                   lambda pos: (h0[:, None, None] << lb) + pos[None],
+                   run_chunks, logn, la, h0, big_tw)
+
+    if fwd:
+        cols(y0, mid)
+        runs(mid, out)
+    else:
+        runs(y0, mid)
+        cols(mid, out)
+    return out
+
+
 def kernel_model(x, k: dict, fwd: bool, mont: bool = False, sizes=KERNEL,
                  banks: bool = False, seen: list | None = None):
     """ntt_fwd_launch / ntt_inv_launch on x int64 [R, N] (any int64, one
     table row per data row) with the host tables k of ntt.kernel_tables:
-    the load's floor mod and to_mont factor, then the cluster path (N >=
-    2^cluster_min_log) or the one-block path.  banks: assert that every
+    the load's floor mod and to_mont factor, then the two-pass path (N >=
+    2^two_pass_min_log), the cluster path (N >= 2^cluster_min_log) or the
+    one-block path.  banks: assert that every
     shared-memory access of a warp hits 32 distinct banks."""
     logn = x.shape[-1].bit_length() - 1
     pick = "w" if fwd else "wi"
@@ -398,6 +548,8 @@ def kernel_model(x, k: dict, fwd: bool, mont: bool = False, sizes=KERNEL,
     if fwd and mont:
         y = _shoup(y, rc[:, 5:6], rc[:, 6:7], q)
     seen = [] if seen is None else seen
+    if logn >= sizes.get("two_pass_min_log", logn + 1):
+        return _model_two_pass(y, tab, fwd, logn, sizes, banks, seen)
     if logn >= sizes["cluster_min_log"]:
         lc = sizes["run_log"] or logn // 2
         return _model_cluster(y, tab, fwd, logn, sizes["cluster_log"], lc,
@@ -494,6 +646,40 @@ def test_cluster_schedule_at_kernel_sizes(logn):
         runs = [(5, 3, kls), (2, 3, kls + 3), (0, 2, kls + 6)]
         assert seen[:3] == (cols if fwd else runs[::-1])        # rank 0
         assert seen[24:27] == (runs if fwd else cols[::-1])
+
+
+@pytest.mark.parametrize("logn", [18, 20, 21])
+def test_two_pass_schedule_at_kernel_sizes(logn):
+    """The two-pass path (N >= 2^18) at the kernels' own sizes on one row:
+    2^18 splits 8 + 10 (column passes of 3+3+2 k bits), 2^20 10 + 10
+    (3+3+2+2), 2^21 10 + 11 (runs of 2^11, 4 a block); run passes of
+    block_chunks(b).  Every pass's groups cover its buffer, each
+    shared-memory access of a warp hits 32 distinct banks, the column
+    pass's twiddle indices stay below 2^a (staged) and the run pass's from
+    2^a up, and the result equals the plain version's, both ways, with and
+    without the folded factors."""
+    n = 1 << logn
+    primes = tuple(rns.find_ntt_primes(30, 2 * n, 1))
+    t = tntt.NTTTables(n, primes)
+    k = tntt.kernel_tables(t.w, t.wi, t.ninv, t.q)
+    rng = np.random.default_rng(logn)
+    x = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (1, n)))
+    tabs = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows([0])
+    la, lb = two_pass_split(logn)
+    assert (la, lb) == {18: (8, 10), 20: (10, 10), 21: (10, 11)}[logn]
+    cols = [(pb0, r, la + 5 - pb0 - r) for pb0, r in block_chunks(la + 5)[:-2]]
+    runs = [(pb0, r, logn - pb0 - r) for pb0, r in block_chunks(lb)]
+    assert [r for _, r, _ in cols] == {8: [3, 3, 2], 10: [3, 3, 2, 2]}[la]
+    for fwd in (True, False):
+        for mont in (False, True):
+            seen = []
+            got = kernel_model(x, k, fwd, mont, banks=True, seen=seen)
+            want = (tntt.ntt_fwd(x, tabs, to_mont=mont) if fwd
+                    else tntt.ntt_inv(x, tabs, from_mont=mont))
+            assert torch.equal(got, want), (fwd, mont)
+            # one row: the column launch's passes, then the run launch's
+            first, second = (cols, runs) if fwd else (runs[::-1], cols[::-1])
+            assert seen == first + second
 
 
 # ---------------------------------------------------------------------------
