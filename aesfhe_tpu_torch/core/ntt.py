@@ -24,11 +24,14 @@ Montgomery form of the data.
 On a CPU tensor they compute the plain version (`ntt_fwd_plain`/
 `ntt_inv_plain`, the same arguments step by step); on a CUDA tensor they
 launch the kernels of `aesfhe_tpu_torch/csrc/ntt.cu` (design note there) or
-raise: one launch a call up to N = 2^17, two from 2^18 (`TWO_PASS_MIN_LOGN`:
-the two-pass path, the residues in between in an int32 scratch of its own)
-up to 2^`MAX_LOGN`; a larger ring raises.
-`launches_fwd`/`launches_inv` count the launches, `launches_two_pass` those
-of the two-pass path among them.
+raise: one launch a call up to N = 2^18 (at `CLUSTER16_LOGN` = 18 on a
+cluster of 16 blocks), two from 2^19 (`TWO_PASS_MIN_LOGN`: the two-pass
+path, the residues in between in an int32 scratch of its own) up to
+2^`MAX_LOGN`; a larger ring raises.  A launch the card refuses (a cluster
+it cannot place) raises with its CUDA error; nothing takes another path.
+`launches_fwd`/`launches_inv` count the launches, `launches_cluster16` and
+`launches_two_pass` those of the 2^18 kernel and of the two-pass path
+among them.
 """
 from __future__ import annotations
 
@@ -42,9 +45,11 @@ from . import rns
 
 launches_fwd = 0
 launches_inv = 0
+launches_cluster16 = 0
 launches_two_pass = 0
 MAX_LOGN = 25            # the kernels' largest ring (csrc/ntt.cu kMaxLog)
-TWO_PASS_MIN_LOGN = 18   # from here two launches a transform (kTwoPassMinLog)
+CLUSTER16_LOGN = 18      # one launch on 16 blocks a row (kCluster16Log)
+TWO_PASS_MIN_LOGN = 19   # from here two launches a transform (kTwoPassMinLog)
 DTYPES = (torch.int32, torch.int64)
 R32 = 1 << 32            # the Montgomery radix R
 
@@ -354,23 +359,26 @@ def launches_per_transform(n: int) -> int:
 
 
 def _count(x) -> int:
-    """A transform's launches, the two-pass path's also counted in
-    launches_two_pass."""
-    k = launches_per_transform(x.shape[-1])
+    """A transform's launches, the 2^18 kernel's also counted in
+    launches_cluster16 and the two-pass path's in launches_two_pass."""
+    global launches_cluster16, launches_two_pass
+    n = x.shape[-1]
+    k = launches_per_transform(n)
     if k == 2:
-        global launches_two_pass
         launches_two_pass += k
+    elif n == 1 << CLUSTER16_LOGN:
+        launches_cluster16 += k
     return k
 
 
 def _launch(fn_name: str, x, t: NTTRows, w, wsh, mont: bool,
             out_dtype) -> torch.Tensor:
-    """One transform on the current stream (one launch, two from 2^18): x
+    """One transform on the current stream (one launch, two from 2^19): x
     is read through its batch and row strides (copied only when its last
     axis is strided), with 16-byte loads where its address and strides
     allow; the two-pass path takes an int32 scratch from the allocator for
-    the residues between its launches; no host synchronisation, so it runs inside a CUDA
-    graph capture."""
+    the residues between its launches; no host synchronisation, so it runs
+    inside a CUDA graph capture."""
     L, n = x.shape[-2], x.shape[-1]
     logn = n.bit_length() - 1
     if logn > MAX_LOGN:
@@ -424,10 +432,11 @@ def _library():
 
 def occupancy(logn: int) -> dict:
     """The launch a ring of 2^logn takes on the current card: blocks per
-    SM, clusters resident at once (0 off the cluster path), dynamic shared
-    memory bytes and threads a block; from 2^18 those of the two-pass
-    path's column pass, and under "runs" its run pass's, with the split
-    (a, b): the column pass runs the first a stages."""
+    SM, clusters resident at once (0 off the cluster paths: 8 blocks each
+    at 2^16 and 2^17, 16 at 2^18), dynamic shared memory bytes and threads
+    a block; from 2^19 those of the two-pass path's column pass, and under
+    "runs" its run pass's, with the split (a, b): the column pass runs the
+    first a stages."""
     out = (ctypes.c_int * 8)()
     err = _library().ntt_occupancy(logn, out)
     if err != 0:
@@ -444,8 +453,9 @@ def bytes_moved(B: int, L: int, n: int, in_bytes: int = 8,
                 out_bytes: int = 8) -> int:
     """Least bytes a transform must move: each input word read once, each
     output word written once (4 bytes int32, 8 int64).  The two-pass path
-    (N >= 2^18) moves each row through device memory twice by design: at
-    least twice these bytes int32 in and out."""
+    (N >= 2^19) moves each row through device memory twice by design: at
+    least twice these bytes int32 in and out; up to 2^18 a row crosses it
+    once."""
     return (in_bytes + out_bytes) * B * L * n
 
 

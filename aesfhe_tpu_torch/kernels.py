@@ -10,8 +10,8 @@ Nothing here runs at import: the CPU tests import every module.
 Each wrapper counts its kernel's launches in a module-level integer;
 `COUNTERS` names them, and `launch_counts`/`zero_launches`/`add_launches`
 read, zero and add to all of them at once (`VARIANTS`, `variant_counts`:
-the chunked conversions' share of ks_modup's and ks_moddown's, the two-pass
-NTT's of ntt_fwd's and ntt_inv's).
+the chunked conversions' share of ks_modup's and ks_moddown's, the 2^18
+NTT's and the two-pass NTT's of ntt_fwd's and ntt_inv's).
 """
 from __future__ import annotations
 
@@ -38,13 +38,18 @@ COUNTERS = {"ks_inner": ("ks_inner", "launches"),
             "sub_scale": ("ks_legs", "launches_sub_scale")}
 # of those launches, the instances that only some parameter sets reach (the
 # chunked conversions: a digit or special set of more than 8 primes; the
-# two-pass NTT: rings of 2^18 and up, two launches a transform); zeroed with
+# NTT on a cluster of 16: rings of 2^18, one launch a transform; the
+# two-pass NTT: rings of 2^19 and up, two launches a transform); zeroed with
 # the counters above, read by `variant_counts`
 VARIANTS = {"ks_modup_chunks": ("ks_legs", "launches_modup_chunks"),
             "ks_moddown_chunks": ("ks_legs", "launches_moddown_chunks"),
+            "ntt_cluster16": ("ntt", "launches_cluster16"),
             "ntt_two_pass": ("ntt", "launches_two_pass")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# ntt.cu's 64 kernels: nvcc optimizes its partitions in parallel (~30 s on
+# the card's host, ~85 s in one thread; the same ptxas registers)
+SPLIT = {"ntt": ["--split-compile=0"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -79,7 +84,8 @@ def build(names=None) -> dict[str, float]:
     t0 = time.perf_counter()
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, *SPLIT.get(n, ()), "-o", str(tmp),
+               str(SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     seconds, failed = {}, []

@@ -119,11 +119,14 @@ _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _BRA = re.compile(r"\bBRA\s+(?:!?U?P\w+,\s*)?(?:`\()?(0x[0-9a-f]+)")
 
 
-def sass_loops(so: Path) -> dict:
+def sass_loops(so: Path, kinds=("ks_modup_kernel", "ks_moddown_kernel"),
+               stores=("STG",), by_symbol: bool = False) -> dict:
     """{kernel: [(instructions, words stored, tensor-core instructions),
-    ...]} over each conversion kernel's innermost loops (a backward branch
-    and its target, no other loop inside) that store to global memory,
-    from `cuobjdump -sass`."""
+    ...]} over the innermost loops (a backward branch and its target, no
+    other loop inside) that store (`stores`: global memory by default) of
+    each kernel whose symbol holds one of `kinds` (the conversion kernels
+    by default; the first match names it, or with `by_symbol` the whole
+    symbol), from `cuobjdump -sass`."""
     cuobjdump = Path(kernels.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(so)],
                           capture_output=True, text=True, check=True,
@@ -133,9 +136,9 @@ def sass_loops(so: Path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             sym = line.split("Function :")[1].strip()
-            name = next((k for k in ("ks_modup", "ks_moddown")
-                         if f"{k}_kernel" in sym), None)
+            name = next((k for k in kinds if k in sym), None)
             if name:
+                name = sym if by_symbol else name.removesuffix("_kernel")
                 funcs[name] = []
         elif name and (m := _INSN.search(line)):
             funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
@@ -152,7 +155,7 @@ def sass_loops(so: Path) -> dict:
             ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body]
             words = sum(4 if op.endswith(".128") else
                         2 if op.endswith(".64") else 1
-                        for op in ops if op.startswith("STG"))
+                        for op in ops if op.startswith(stores))
             if words:
                 rows.append((len(body), words,
                              sum(op.startswith("IMMA") for op in ops)))

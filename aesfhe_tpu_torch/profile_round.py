@@ -5,6 +5,7 @@ zeta round goes on the card.
     python -m aesfhe_tpu_torch.profile_round --refresh [--graph]
                                              [--profile prod_boot]
     python -m aesfhe_tpu_torch.profile_round --zeta [--profile prod_boot]
+    python -m aesfhe_tpu_torch.profile_round --bench bitplane [--logn 18]
 
 Rounds: generates the key family from a seed, encrypts 2048 random blocks,
 drops them to the uniform work level ROUND_DEPTH * rounds + 1, runs the
@@ -25,6 +26,10 @@ what the graph takes off the host.
 `--zeta`: the nibble-pair pipeline (AESFHE128) with direct rotation keys
 for its merged ShiftRows+MixColumns, 2048 random blocks encrypted fresh,
 ARK(rk0) and round 1 once untraced and once under torch.profiler.
+
+`--bench MODE`: one step of bench's bitplane or zeta leg (`bench.SETUPS`,
+its profile at N=2^logn, 16 levels, seed-0 keys), once untraced and once
+under torch.profiler, after a warm-up step.
 
 Prints one JSON object: the traced wall time, the summed device kernel
 time and its share of the wall (the rest is the card idling on the host),
@@ -116,6 +121,14 @@ def _zeta_work(args):
             dict(zeta_rounds=1, input_level=pair.hi.level))
 
 
+def _bench_work(args):
+    """(what to trace, its description) for one step of a bench leg."""
+    from . import bench
+    leg = bench.SETUPS[args.bench](args.logn, 16, "cuda")
+    return (lambda: leg.step(*leg.args),
+            dict(bench=args.bench, logn=args.logn, blocks=leg.blocks))
+
+
 def _trace(work) -> dict:
     """Warm-up, one untraced run (CUDA events) and one run under
     torch.profiler: walls, device kernel time and busy shares, the
@@ -162,11 +175,16 @@ def _trace(work) -> dict:
 
 
 # the port's kernels by their demangled or mangled names: csrc/ntt.cu's
-# ntt_cluster<forward?, ...> and ntt_block<forward?, ...>, ks_inner.cu's
-# and ks_legs.cu's kernels
+# ntt_cluster<forward?, ...>, ntt_cluster16, ntt_block and the two-pass
+# ntt_cols/ntt_runs (also apart: the rings from 2^18), ks_inner.cu's and
+# ks_legs.cu's kernels
 PORT_KERNELS = {"ks_inner": "ks_inner_kernel",
-                "ntt_fwd": "ntt_(cluster|block)(<true|ILb1)",
-                "ntt_inv": "ntt_(cluster|block)(<false|ILb0)",
+                "ntt_fwd": "ntt_(cluster16|cluster|block|cols|runs)"
+                           "(<true|ILb1)",
+                "ntt_inv": "ntt_(cluster16|cluster|block|cols|runs)"
+                           "(<false|ILb0)",
+                "ntt_cluster16": "ntt_cluster16",
+                "ntt_two_pass": "ntt_(cols|runs)",
                 "ks_modup": "ks_modup_kernel",
                 "ks_moddown": "ks_moddown_kernel",
                 "sub_scale": "sub_scale_kernel"}
@@ -239,6 +257,10 @@ def main(argv=None) -> dict:
                          "replays")
     ap.add_argument("--zeta", action="store_true",
                     help="trace one zeta nibble-pair round instead")
+    ap.add_argument("--bench", choices=("bitplane", "zeta"),
+                    help="trace one step of bench's leg instead")
+    ap.add_argument("--logn", type=int, default=18,
+                    help="with --bench: its ring, 2^logn")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -250,8 +272,8 @@ def main(argv=None) -> dict:
     if args.graph and not args.refresh:
         raise SystemExit("profile_round: --graph needs --refresh")
 
-    work, desc = (_zeta_work if args.zeta else _refresh_work if args.refresh
-                  else _rounds_work)(args)
+    work, desc = (_bench_work if args.bench else _zeta_work if args.zeta
+                  else _refresh_work if args.refresh else _rounds_work)(args)
     phase_run = desc.pop("phase_run", None)
     wrap = desc.pop("wrap", None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,11 +20,12 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      digits over q|specials (the top level; level 29's gapped rows), a
      rescale's 2 x 55 rows, one row with inputs outside [0, q), a strided
      view, DistNTT's [128, 55, 256], one row of 2^17, and the round
-     trips; the two-pass NTT (N >= 2^18, two launches a transform) alike
-     at bench LOGN=18's decomposition [5, 21, 2^18], a rescale's
-     [2, 17, 2^18], one row outside [0, q), a strided view, one row each
-     of 2^19, 2^20 and 2^25 (the kernels' largest ring), and the round
-     trips; the key-switch legs (ks_modup, ks_moddown, sub_scale; their
+     trips; the NTT above 2^17 alike (2^18: ntt_cluster16, one launch on a
+     cluster of 16 blocks; from 2^19 the two-pass NTT, two launches a
+     transform) at bench LOGN=18's decomposition [5, 21, 2^18], a
+     rescale's [2, 17, 2^18], one row outside [0, q), a strided view, one
+     row each of 2^19, 2^20 and 2^25 (the kernels' largest ring), and the
+     round trips; the key-switch legs (ks_modup, ks_moddown, sub_scale; their
      ptxas registers and spills) at levels 54, 28 and 24 and bench's
      widest switch, ks_modup over the mesh's digit ranges (a padded last
      digit, a range of padding only), both conversions on byte-extreme
@@ -110,8 +111,9 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      phase error at 16, 17 and 18, peak device memory; then the 3b check
      at N=2^20 on LARGE_HP (decoded within 5%) and LARGE_KS (its decode
      error printed, the reference's at that set; the card's residues held
-     against the host's plain versions); the two-pass NTT launched on every
-     one of these paths, and on no earlier one.
+     against the host's plain versions); the 16-block NTT launched on the
+     legs at 2^18, the two-pass NTT on the key-switches at 2^20, each on no
+     other path.
 Every main path (slice, bench legs, flagship with its graph replays, each
 fused replay, zeta legs, every mesh rank) zeroes the launch counts just
 before it and prints every kernel's launches, which must all be > 0, with
@@ -122,8 +124,9 @@ last is a JSON object with one entry per kernel (ks_inner, ntt_fwd,
 ntt_inv, ks_modup, ks_moddown, sub_scale; launches summed over the slice,
 the bench legs, the large-ring legs, the flagship, the zeta legs and every
 rank of the mesh phase) and per instance (ks_modup_chunks,
-ks_moddown_chunks: launches of the key-switch phase 3b; ntt_two_pass: of
-the large-ring phase 10b, the paths that reach them); the last line is
+ks_moddown_chunks: launches of the key-switch phase 3b; ntt_cluster16,
+ntt_two_pass: of the large-ring phase 10b, the paths that reach them); the
+last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; imports nothing of
 JAX or of the reference package.
 """
@@ -182,7 +185,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM published memory rate
 INT32_MULS_PER_S = 132 * 64 * 1.98e9
 MESH_SEED = SEED + 4
 # bench's bitplane and zeta legs: the root bench.py's default profile; the
-# large-ring phase runs them at AESFHE_BENCH_LOGN=18 (the two-pass NTT) and
+# large-ring phase runs them at AESFHE_BENCH_LOGN=18 (the 16-block NTT) and
 # the zeta leg at 2^17 for its phase error's trend
 BENCH_LOGN, BENCH_LEVELS, BENCH_ITERS = 16, 16, 3
 LARGE_LOGN = 18
@@ -253,8 +256,8 @@ def check_launches(where: str, counts: dict, instances=(), variants=None):
     """Print a main path's kernel launches: every kernel must have run, and
     the mod-down once per key-switch, as the inner product; the instances
     of kernels.VARIANTS (`variants`, read with `counts`; by default this
-    process's counts now: the chunked conversions, the two-pass NTT) not
-    at all, unless named in `instances`."""
+    process's counts now: the chunked conversions, the 16-block and the
+    two-pass NTT) not at all, unless named in `instances`."""
     if variants is None:
         variants = kernels.variant_counts()
     print(f"{where}: kernel launches {counts}, instances {variants}",
@@ -354,8 +357,9 @@ def ntt_build_info():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "registers" in line and entry is not None:
-            kind = next(k for k in ("ntt_cluster", "ntt_cols", "ntt_runs",
-                                    "ntt_block") if k in entry)
+            kind = next(k for k in ("ntt_cluster16", "ntt_cluster",
+                                    "ntt_cols", "ntt_runs", "ntt_block")
+                        if k in entry)
             print(f"ptxas {kind} {entry}: {line.split(':', 1)[1].strip()}",
                   flush=True)
     for logn in (8, 15, 16, 17, 18, 19, 20, ntt.MAX_LOGN):
@@ -437,7 +441,8 @@ def ntt_cases(params, rng, dev) -> list:
 
 
 def large_ntt_cases(rng, dev) -> list:
-    """The two-pass NTT (N >= 2^18, two launches a transform) in every
+    """The NTT above 2^17 (2^18: ntt_cluster16, one launch on 16 blocks a
+    row; from 2^19 the two-pass NTT, two launches a transform) in every
     variant of the contract, timed in the main path's: bench LOGN=18's
     key-switch decomposition (J digits over q_0..q_top | specials) int32 in
     and out with the Montgomery factors folded in, and int64 in and out; a
@@ -802,8 +807,9 @@ def keyswitch_check(name: str, p: CKKSParams, decodes: bool = True):
     rescales first) and one rotation by one slot at p on the card, from
     seeded keys: every key-switch kernel launched (one mod-down per inner
     product), the chunked conversions exactly where a digit at that level
-    or the special set has more than 8 primes, the two-pass NTT exactly
-    where N >= 2^18, and the results decrypted against the encoded values
+    or the special set has more than 8 primes, the 16-block NTT exactly
+    where N = 2^18 and the two-pass NTT where N >= 2^19, and the results
+    decrypted against the encoded values
     (x uniform in [-1, 1], in [-256, 256] at scale 2^14, whose fresh noise
     is ~1), each decode error within 5% of the largest value when
     `decodes` (else printed only: the set's noise passes its scale; then
@@ -836,12 +842,15 @@ def keyswitch_check(name: str, p: CKKSParams, decodes: bool = True):
                 ks_legs.ModupTables(p, lvl, "cpu").nch > 1
                 for lvl in (sq.level, ct.level)),
             "ks_moddown_chunks": 2 * (p.num_special > ks_legs.CHUNK)}
-    two_pass = chunked["ntt_two_pass"]
+    logn = p.n.bit_length() - 1
     if {k: chunked[k] for k in want} != want or \
-            (two_pass > 0) != (p.n.bit_length() - 1 >= ntt.TWO_PASS_MIN_LOGN):
+            (chunked["ntt_two_pass"] > 0) != (logn >= ntt.TWO_PASS_MIN_LOGN) \
+            or (chunked["ntt_cluster16"] > 0) != (logn == ntt.CLUSTER16_LOGN):
         raise AssertionError(f"key-switch {name}: instance launches "
-                             f"{chunked}, expected {want} and the two-pass "
-                             f"NTT exactly from 2^{ntt.TWO_PASS_MIN_LOGN}")
+                             f"{chunked}, expected {want}, the two-pass "
+                             f"NTT exactly from 2^{ntt.TWO_PASS_MIN_LOGN} "
+                             f"and the 16-block one exactly at "
+                             f"2^{ntt.CLUSTER16_LOGN}")
     errs = {"relin": float(np.abs(eng.decrypt(sq, sk) - x * x).max()
                            / amp ** 2),
             "rotate": float(np.abs(eng.decrypt(r, sk) - np.roll(x, 1))
@@ -1296,7 +1305,8 @@ def bench_leg(mode: str, logn: int, iters: int, exact: bool = True):
     CPU leg: its line printed, its output held against the AES oracle
     (wrong bytes fail the phase when `exact`; else they are printed),
     launches equal to key-switches over the warm-up and the timed
-    iterations, every kernel launched, the two-pass NTT exactly from 2^18.
+    iterations, every kernel launched, the 16-block NTT exactly at 2^18
+    and the two-pass NTT exactly from 2^19.
     Returns (each kernel's launches, the instances', a record: blocks/s,
     wrong bytes, the zeta step's largest phase error, peak GiB)."""
     torch.cuda.reset_peak_memory_stats()
@@ -1339,12 +1349,13 @@ def bench_leg(mode: str, logn: int, iters: int, exact: bool = True):
         raise AssertionError(f"bench {mode}: ks_inner launched "
                              f"{launches} times for "
                              f"{counters['keyswitch']} key-switches")
-    large = logn >= ntt.TWO_PASS_MIN_LOGN
+    large = ("ntt_two_pass" if logn >= ntt.TWO_PASS_MIN_LOGN else
+             "ntt_cluster16" if logn == ntt.CLUSTER16_LOGN else None)
     check_launches(f"bench {mode} at N=2^{logn}", counts,
-                   ("ntt_two_pass",) if large else (), variants)
-    if large and variants["ntt_two_pass"] <= 0:
-        raise AssertionError(f"bench {mode} at N=2^{logn}: the two-pass NTT "
-                             f"did not run")
+                   (large,) if large else (), variants)
+    if large and variants[large] <= 0:
+        raise AssertionError(f"bench {mode} at N=2^{logn}: {large} did not "
+                             f"run")
     del leg, out, eng
     torch.cuda.empty_cache()
     return counts, variants, dict(bps=bps, bad=bad, err=err, peak=peak)
@@ -1362,13 +1373,13 @@ def bench_phase():
 
 
 def large_ring_phase(zeta16_err: float):
-    """The rings of the two-pass NTT on the main path: bench's bitplane leg
+    """The rings above 2^17 on the main path: bench's bitplane leg
     at LOGN=18 (every block exact) and its zeta leg at 18 (wrong bytes and
     phase error printed; the leg at 17 too, for the phase error's trend
     beside 16's), then keyswitch_check at N=2^20 on LARGE_HP (decoded) and
     LARGE_KS (held residue for residue against the host's plain versions).
-    Returns each kernel's launches and the instances' (the two-pass
-    NTT's)."""
+    Returns each kernel's launches and the instances' (the 16-block and
+    the two-pass NTT's)."""
     total = dict.fromkeys(kernels.COUNTERS, 0)
     inst = dict.fromkeys(kernels.VARIANTS, 0)
     trend = {BENCH_LOGN: (zeta16_err, 0)}
@@ -1392,8 +1403,9 @@ def large_ring_phase(zeta16_err: float):
           "N=2^16 through both packages, "
           "tests/test_torch_large_ring.py::"
           "test_large_ks_decode_error_is_the_references)", flush=True)
-    print(f"two-pass NTT launches over this phase: {inst['ntt_two_pass']} "
-          f"(0 on every earlier phase)", flush=True)
+    print(f"16-block NTT launches over this phase: {inst['ntt_cluster16']}, "
+          f"two-pass NTT launches: {inst['ntt_two_pass']} (0 of each on "
+          f"every earlier phase)", flush=True)
     return total, inst
 
 
@@ -1402,7 +1414,8 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
     """The closing lines: the kernels line (each kernel's `launches` summed
     over the main paths run, the instances' (kernels.VARIANTS) over the
     phases that reach them: the chunked conversions' the key-switch phase,
-    the two-pass NTT's the large-ring phase; ms, plain_ms and bound_ms of
+    the 16-block and the two-pass NTT's the large-ring phase; ms, plain_ms
+    and bound_ms of
     its widest shape, and every shape timed under "shapes"), the card, the
     contract's last line."""
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s",
@@ -1426,18 +1439,23 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
             library_ms=None, shapes=mine))
-    # the two-pass instance of both (N >= 2^18): its widest shape is bench
-    # LOGN=18's decomposition, forward
-    large = [c for c in ntt_shapes
-             if c["N"] >= 1 << ntt.TWO_PASS_MIN_LOGN]
-    entries.append(dict(
-        name="ntt_two_pass", route="cuda",
-        source="aesfhe_tpu_torch/csrc/ntt.cu",
-        replaces="aesfhe_tpu/core/mxu_ntt.py:239",
-        launches=instances["ntt_two_pass"],
-        max_abs_err=max(c["max_abs_err"] for c in large), ms=large[0]["ms"],
-        plain_ms=large[0]["plain_ms"], bound_ms=large[0]["bound_ms"],
-        bound_by=large[0]["bound_by"], library_ms=None, shapes=large))
+    # the instances of both above 2^17: the 16-block kernel (N = 2^18), its
+    # widest shape bench LOGN=18's decomposition, forward; the two-pass one
+    # (N >= 2^19), its widest a row of 2^25, forward
+    for name, mine in (
+            ("ntt_cluster16", [c for c in ntt_shapes
+                               if c["N"] == 1 << ntt.CLUSTER16_LOGN]),
+            ("ntt_two_pass", [c for c in ntt_shapes
+                              if c["N"] >= 1 << ntt.TWO_PASS_MIN_LOGN])):
+        widest = max(mine, key=lambda c: c["bound_ms"])
+        entries.append(dict(
+            name=name, route="cuda", source="aesfhe_tpu_torch/csrc/ntt.cu",
+            replaces="aesfhe_tpu/core/mxu_ntt.py:239",
+            launches=instances[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=widest["ms"], plain_ms=widest["plain_ms"],
+            bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
+            library_ms=None, shapes=mine))
     # ks_legs.cu's kernels; no single PyTorch call computes any of them
     for name, line_no in (("ks_modup", 497), ("ks_moddown", 697),
                           ("sub_scale", 760), ("ks_modup_chunks", 497),
@@ -1595,7 +1613,7 @@ def main(argv=None) -> int:
     counts, zeta16_err = bench_phase()
     add_launches(total, counts)
 
-    phase("large ring (the two-pass NTT)")
+    phase("large ring (the NTT above 2^17)")
     counts, large_inst = large_ring_phase(zeta16_err)
     add_launches(total, counts)
 

@@ -62,6 +62,7 @@ def _ntt_rows_case(rows_obj, shape, q, rng, spread=False, view=None):
             for mont in (False, True):
                 f0, i0 = ntt.launches_fwd, ntt.launches_inv
                 t0 = ntt.launches_two_pass
+                c0 = ntt.launches_cluster16
                 got = ntt.ntt_fwd(xi, rows_obj, mont, outd)
                 inv = ntt.ntt_inv(xi, rows_obj, mont, outd)
                 torch.cuda.synchronize()
@@ -70,6 +71,8 @@ def _ntt_rows_case(rows_obj, shape, q, rng, spread=False, view=None):
                                                                 i0 + k)
                 assert ntt.launches_two_pass - t0 == (2 * k if k == 2
                                                       else 0)
+                c16 = xi.shape[-1] == 1 << ntt.CLUSTER16_LOGN
+                assert ntt.launches_cluster16 - c0 == (2 if c16 else 0)
                 assert got.dtype == inv.dtype == outd
                 xc = xi.cpu()
                 assert torch.equal(got.cpu(), ntt.ntt_fwd_plain(
@@ -154,15 +157,16 @@ def test_ntt_kernel_equals_plain():
                                         (20, (1, 2)), (21, (1, 2)),
                                         (25, (1, 1))])
 def test_two_pass_ntt_kernel_equals_plain(logn, shape):
-    """The two-pass path (N >= 2^18, two launches a transform) torch.equal
-    to the plain versions in every variant of the contract (int32/int64 in
-    and out, the Montgomery factors folded in or not; int64 inputs outside
-    [0, q)), rows in another order than the tables'; at 2^18 also through
-    a strided view; the round trips, plain and fused; and a fused forward
-    to int32 and an inverse to int64 (each with an int32 scratch of its own
-    between its launches) captured in one CUDA graph, replayed on a new
-    input, equal to eager.  2^25 is the kernels'
-    largest ring (ntt.MAX_LOGN)."""
+    """The rings above 2^17: 2^18 on a cluster of 16 blocks (one launch a
+    transform) and the two-pass path (N >= 2^19, two launches a transform)
+    torch.equal to the plain versions in every variant of the contract
+    (int32/int64 in and out, the Montgomery factors folded in or not; int64
+    inputs outside [0, q)), rows in another order than the tables'; at
+    2^18 also through a strided view; the round trips, plain and fused; and
+    a fused forward to int32 and an inverse to int64 (on the two-pass path
+    each with an int32 scratch of its own between its launches) captured in
+    one CUDA graph, replayed on a new input, equal to eager.  2^25 is the
+    kernels' largest ring (ntt.MAX_LOGN)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     assert ntt.MAX_LOGN == 25
@@ -195,7 +199,8 @@ def test_two_pass_ntt_kernel_equals_plain(logn, shape):
 def test_ntt_limit_and_occupancy():
     """A ring above 2^MAX_LOGN raises before any launch, with the limit in
     the message; ntt.occupancy reports both passes of the two-pass path
-    (the split a + b = logN, each pass resident), one launch below 2^18,
+    (the split a + b = logN, each pass resident), 2^18 as one launch on
+    clusters of 16 blocks (the card holds some at once), one launch below,
     and raises above the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -210,11 +215,16 @@ def test_ntt_limit_and_occupancy():
     assert ntt.launches_fwd == f0
     del d, x
     torch.cuda.empty_cache()
-    for logn, split in ((18, (8, 10)), (20, (10, 10)), (25, (10, 15))):
+    for logn, split in ((19, (9, 10)), (20, (10, 10)), (25, (10, 15))):
         occ = ntt.occupancy(logn)
         assert occ["split"] == split and sum(split) == logn
         assert occ["blocks_per_sm"] >= 1 and occ["runs"]["blocks_per_sm"] >= 1
         assert occ["smem_bytes"] <= 232448 >= occ["runs"]["smem_bytes"]
+    occ = ntt.occupancy(ntt.CLUSTER16_LOGN)
+    assert "runs" not in occ and occ["clusters"] > 0
+    assert occ["blocks_per_sm"] >= 1 and occ["smem_bytes"] <= 232448
+    assert ntt.launches_per_transform(1 << 18) == 1
+    assert ntt.launches_per_transform(1 << 19) == 2
     assert "runs" not in ntt.occupancy(17)
     with pytest.raises(RuntimeError, match="ntt_occupancy"):
         ntt.occupancy(ntt.MAX_LOGN + 1)
@@ -223,7 +233,8 @@ def test_ntt_limit_and_occupancy():
 def test_bitplane_leg_at_2_18_exact():
     """bench's bitplane leg at AESFHE_BENCH_LOGN=18 on the card (8192
     blocks, one full middle round): every byte equals the AES oracle, one
-    ks_inner launch per key-switch, the two-pass NTT launched."""
+    ks_inner launch per key-switch, the 16-block NTT launched and the
+    two-pass one not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from aesfhe_tpu_torch import bench, kernels
@@ -235,7 +246,8 @@ def test_bitplane_leg_at_2_18_exact():
     assert leg.blocks == 8192
     assert bench.check_leg(leg, out) == 0
     assert ks_inner.launches == eng.counters["keyswitch"] > 0
-    assert kernels.variant_counts()["ntt_two_pass"] > 0
+    counts = kernels.variant_counts()
+    assert counts["ntt_cluster16"] > 0 and counts["ntt_two_pass"] == 0
 
 
 def test_fused_bootstrap_graph_equals_eager():

@@ -12,9 +12,9 @@ CUDA kernels' pass schedule, on the CPU, against the reference.
   last stage) over the tables `ntt.kernel_tables` uploads, equals the
   reference's host NTT for N = 2^4 ... 2^13 on two limbs, with the kernels'
   own tile and one-pass sizes and with small ones that split every N; the
-  cluster path (2^16, 2^17) and the two-pass path (2^18, 2^20, 2^21) at
-  the kernels' own sizes equal the plain version, their shared-memory
-  accesses free of bank conflicts;
+  cluster path (2^16, 2^17 on 8 blocks, 2^18 on 16) and the two-pass path
+  (2^19, 2^20, 2^21) at the kernels' own sizes equal the plain version,
+  their shared-memory accesses free of bank conflicts;
 - the wrappers' argument checks, and no module but core/ntt.py calls the
   plain versions.
 """
@@ -151,9 +151,11 @@ def test_wrappers_match_reference(profile):
 # ---------------------------------------------------------------------------
 
 # csrc/ntt.cu's sizes: kClusterMinLog, kClusterLog, kRunLog, kTileLog; the
+# 16-block cluster's kCluster16Log, kC16Log (runs of 2^(kC16Log + 5)); the
 # two-pass path's kTwoPassMinLog, kColMaxLog, kRunMinLog, kRunsTileLog
 KERNEL = dict(cluster_min_log=16, cluster_log=3, run_log=8, tile_log=11,
-              two_pass_min_log=18, col_max_log=10, run_min_log=10,
+              cluster16_log=18, c16_log=4,
+              two_pass_min_log=19, col_max_log=10, run_min_log=10,
               runs_tile_log=13)
 # small ones: every N from 2^4 through the cluster path (2 blocks, runs of
 # 2^(logN/2)), the one-block path with one row a block
@@ -176,6 +178,14 @@ def _sub(a, b, q):
 
 def _pad(p):
     return p + (p >> 5)
+
+
+def _log2(x):
+    """floor(log2(x)) of a positive int64 tensor, elementwise."""
+    out = torch.zeros_like(x)
+    for b in range(1, 63):
+        out += (x >> b) > 0
+    return out
 
 
 def _radix(v, r, s0, gb, q, tw, f, fwd):
@@ -223,11 +233,12 @@ def _banks_distinct(addr):
 
 
 def _pass(nbits, pb0, r, s0, boff, load, store, q, tw, f, fwd, banks,
-          seen):
+          seen, held=False):
     """One pass: load(pos [G, R]) -> values, radix, store(pos, values);
     the positions of all groups cover the buffer once; banks: each smem
     access is checked for conflicts (load/store return the physical
-    addresses they touched, or None for global memory)."""
+    addresses they touched, or None for global memory).  held (pass_held):
+    the stores are returned as a function, to run after a barrier."""
     # at the kernel's sizes no pass straddles bit 5 (SmemBuf's stride)
     assert not banks or pb0 >= 5 or pb0 + r <= 5
     base = _groups(nbits, pb0, r)
@@ -239,10 +250,15 @@ def _pass(nbits, pb0, r, s0, boff, load, store, q, tw, f, fwd, banks,
     if banks and addr is not None:
         assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
     v = _radix(v, r, s0, gb, q(base), lambda ti: tw(base, ti), f(base), fwd)
-    addr = store(pos, v)
-    if banks and addr is not None:
-        assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
     seen.append((pb0, r, s0))
+
+    def put():
+        addr = store(pos, v)
+        if banks and addr is not None:
+            assert all(_banks_distinct(addr[:, j]) for j in range(1 << r))
+    if held:
+        return put
+    put()
 
 
 def _smem(buf):
@@ -317,19 +333,31 @@ def _model_block(y0, tab, fwd, logn, tile_log, banks, seen):
     return out
 
 
-def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
-    """ntt_cluster over rows y0 [R, N]: one cluster of 2^cl_log blocks a
-    row; block `rank` holds the columns from rank*C (column layout k*C +
-    cl) and the runs from h0 = rank*H (run layout hl*2^lc + c)."""
+def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen,
+                   one_buf=False):
+    """ntt_cluster (ntt_cluster16) over rows y0 [R, N]: one cluster of
+    2^cl_log blocks a row; block `rank` holds the columns from rank*C
+    (column layout k*C + cl) and the runs from h0 = rank*H (run layout
+    hl*2^lc + c).  At the kernels' 32 columns a block (C = 32) the run
+    passes are c bits [5, lc) (the exchange: one bit a block), [2, 5),
+    [0, 2).  Every block runs the first half, then (a cluster barrier)
+    the exchange; one_buf (ntt_cluster16): both layouts share one buffer a
+    block, so the exchange's stores wait until every block has loaded
+    (pass_held), then the rest of the second half; its exchange's run
+    stages read their twiddles from the block's staged copy (ExTw)."""
     R, n = y0.shape
     K, col_log, ls = 1 << cl_log, lc - cl_log, logn - lc
     C, nb, hlog = 1 << col_log, logn - lc + lc - cl_log, ls - cl_log
     words = _pad((1 << nb) - 1) + 1
     out = torch.full_like(y0, -1)
-    col_chunks, run_chunks = _chunks_top3(ls), _chunks_top3(lc)
+    kernel_form = col_log == 5
+    col_chunks = _chunks_top3(ls)
+    run_chunks = ([(5, cl_log), (2, 3), (0, 2)] if kernel_form
+                  else _chunks_top3(lc))
     for row in range(R):
         cols = [torch.full((words,), -1, dtype=torch.int64) for _ in range(K)]
-        runs = [torch.full((words,), -1, dtype=torch.int64) for _ in range(K)]
+        runs = cols if one_buf else [
+            torch.full((words,), -1, dtype=torch.int64) for _ in range(K)]
         q = tab["q"][row]
         f = [c[row] for c in tab["fold"]]
 
@@ -339,6 +367,21 @@ def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
 
         def big_tw(base, ti):
             return tab["w"][row, ti], tab["wsh"][row, ti]
+
+        def ex_tw(rank):               # ExTw: the exchange's stages, staged
+            h0 = rank << hlog
+            e = torch.arange(((1 << cl_log) - 1) << hlog)
+            i = _log2((e >> hlog) + 1)
+            idx = (1 << (ls + i)) + (h0 << i) + e - (((1 << i) - 1) << hlog)
+            sw, ssh = tab["w"][row, idx], tab["wsh"][row, idx]
+
+            def tw(base, ti):
+                i = _log2(ti) - ls
+                assert int(i.min()) >= 0 and int(i.max()) < cl_log
+                at = (((1 << i) - 1) << 5) + ti - (1 << (ls + i)) - (h0 << i)
+                assert int(at.min()) >= 0 and int(at.max()) < e.numel()
+                return sw[at], ssh[at]
+            return tw
 
         def col_gidx(pos, rank):       # ColIn / ColOut
             return ((pos >> col_log) << lc) | ((rank << col_log)
@@ -359,7 +402,7 @@ def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
                 blk = (pos >> col_log) & (K - 1)
                 a = _pad(((h0 + (pos >> lc)) << col_log) | (pos & (C - 1)))
                 # the kernel's form: block j, one offset
-                if (lc, col_log) == (8, 5):
+                if kernel_form:
                     assert torch.equal(blk, torch.arange(K).expand_as(blk))
                     assert torch.equal(a, a[:, :1].expand_as(a))
                 v = torch.stack([c[a] for c in cols])
@@ -372,7 +415,7 @@ def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
                 a = _pad(((k & ((1 << hlog) - 1)) << lc) | (rank << col_log)
                          | (pos & (C - 1)))
                 # the kernel's form: one block, a stride
-                if (lc, col_log) == (8, 5):
+                if kernel_form:
                     blk = k >> hlog
                     assert torch.equal(blk, blk[:, :1].expand_as(blk))
                     step = torch.arange(a.shape[1]) * _pad(1 << lc)
@@ -381,41 +424,55 @@ def _model_cluster(y0, tab, fwd, logn, cl_log, lc, banks, seen):
                 return torch.gather(v, 0, (k >> hlog)[None]).squeeze(0), a
             return load
 
-        def run_phase(rank, first_load):
+        def run_phase(rank, first_load, passes, held=False):
             h0 = rank << hlog
             load, store = _smem(runs[rank])
             order = run_chunks if fwd else run_chunks[::-1]
-            for i, (cb0, r) in enumerate(order):
+            put = None
+            for i in passes:
+                cb0, r = order[i]
                 s0 = ls + lc - cb0 - r
                 last = i == len(order) - 1
-                _pass(nb, cb0, r, s0, h0 << (s0 - ls),
-                      first_load if i == 0 else load,
-                      glob_out(lambda p: p + (h0 << lc))
-                      if fwd and last else store,
-                      lambda b: q, big_tw, lambda b: f, fwd, banks, seen)
+                exchange = one_buf and cb0 == 5
+                put = _pass(nb, cb0, r, s0, h0 << (s0 - ls),
+                            first_load if i == 0 else load,
+                            glob_out(lambda p: p + (h0 << lc))
+                            if fwd and last else store,
+                            lambda b: q, ex_tw(rank) if exchange else big_tw,
+                            lambda b: f, fwd, banks, seen, held)
+            return put
 
-        def col_phase(rank, first_load):
+        def col_phase(rank, first_load, passes, held=False):
             load, store = _smem(cols[rank])
             order = col_chunks if fwd else col_chunks[::-1]
-            for i, (kb0, r) in enumerate(order):
+            put = None
+            for i in passes:
+                kb0, r = order[i]
                 last = i == len(order) - 1
-                _pass(nb, col_log + kb0, r, ls - kb0 - r, 0,
-                      first_load if i == 0 else load,
-                      glob_out(lambda p: col_gidx(p, rank))
-                      if not fwd and last else store,
-                      lambda b: q, small_tw, lambda b: f, fwd, banks, seen)
+                put = _pass(nb, col_log + kb0, r, ls - kb0 - r, 0,
+                            first_load if i == 0 else load,
+                            glob_out(lambda p: col_gidx(p, rank))
+                            if not fwd and last else store,
+                            lambda b: q, small_tw, lambda b: f, fwd, banks,
+                            seen, held)
+            return put
 
+        first, second = (col_phase, run_phase) if fwd else (run_phase,
+                                                           col_phase)
+        n1, n2 = ((len(col_chunks), len(run_chunks)) if fwd
+                  else (len(run_chunks), len(col_chunks)))
         for rank in range(K):          # up to the first cluster barrier
-            if fwd:
-                col_phase(rank, glob_in(lambda p: col_gidx(p, rank)))
-            else:
-                h0 = rank << hlog
-                run_phase(rank, glob_in(lambda p: p + (h0 << lc)))
-        for rank in range(K):          # after it
-            if fwd:
-                run_phase(rank, from_cols(rank))
-            else:
-                col_phase(rank, from_runs(rank))
+            first(rank, glob_in(lambda p: col_gidx(p, rank)) if fwd else
+                  glob_in(lambda p: p + ((rank << hlog) << lc)), range(n1))
+        # the exchange: every block's loads, then (one buffer: after the
+        # second cluster barrier) every block's stores
+        puts = [second(rank, from_cols(rank) if fwd else from_runs(rank),
+                       range(1), one_buf) for rank in range(K)]
+        for put in puts:
+            if put is not None:
+                put()
+        for rank in range(K):
+            second(rank, None, range(1, n2))
     return out
 
 
@@ -533,8 +590,9 @@ def kernel_model(x, k: dict, fwd: bool, mont: bool = False, sizes=KERNEL,
     """ntt_fwd_launch / ntt_inv_launch on x int64 [R, N] (any int64, one
     table row per data row) with the host tables k of ntt.kernel_tables:
     the load's floor mod and to_mont factor, then the two-pass path (N >=
-    2^two_pass_min_log), the cluster path (N >= 2^cluster_min_log) or the
-    one-block path.  banks: assert that every
+    2^two_pass_min_log), the 16-block cluster (N = 2^cluster16_log), the
+    cluster path (N >= 2^cluster_min_log) or the one-block path.  banks:
+    assert that every
     shared-memory access of a warp hits 32 distinct banks."""
     logn = x.shape[-1].bit_length() - 1
     pick = "w" if fwd else "wi"
@@ -550,6 +608,10 @@ def kernel_model(x, k: dict, fwd: bool, mont: bool = False, sizes=KERNEL,
     seen = [] if seen is None else seen
     if logn >= sizes.get("two_pass_min_log", logn + 1):
         return _model_two_pass(y, tab, fwd, logn, sizes, banks, seen)
+    if logn == sizes.get("cluster16_log"):
+        c16 = sizes["c16_log"]
+        return _model_cluster(y, tab, fwd, logn, c16, c16 + 5, banks, seen,
+                              one_buf=True)
     if logn >= sizes["cluster_min_log"]:
         lc = sizes["run_log"] or logn // 2
         return _model_cluster(y, tab, fwd, logn, sizes["cluster_log"], lc,
@@ -617,15 +679,17 @@ def test_pass_schedule_matches_reference(sizes):
         assert np.array_equal(back.numpy(), x % q), logn
 
 
-@pytest.mark.parametrize("logn", [16, 17])
+@pytest.mark.parametrize("logn", [16, 17, 18])
 def test_cluster_schedule_at_kernel_sizes(logn):
-    """The cluster path at the kernels' own sizes (8 blocks, runs of 256,
-    32 columns a block; 2^16: column passes of 3+3+2 k bits, 2^17: 3+3+3)
-    on one row: every pass's groups cover its buffer, each shared-memory
-    access of a warp (local and through the exchange) hits 32 distinct
-    banks, the first half's twiddle indices stay below 2^(logN-8), and the
-    result equals the plain version's, both ways, with the folded
-    factors."""
+    """The cluster paths at the kernels' own sizes on one row, 32 columns a
+    block: 2^16 and 2^17 on 8 blocks, runs of 256 (run passes of 3+3+2 c
+    bits; column passes of 3+3+2 k bits at 2^16, 3+3+3 at 2^17), 2^18 on
+    16 blocks (ntt_cluster16), runs and columns of 512 (run passes 4+3+2,
+    the first one the exchange, column passes 3+3+3).  Every pass's groups
+    cover its buffer, each shared-memory access of a warp (local and
+    through the exchange) hits 32 distinct banks, the first half's twiddle
+    indices stay below 2^(logN-lc) (staged), and the result equals the
+    plain version's, both ways, with and without the folded factors."""
     n = 1 << logn
     primes = tuple(rns.find_ntt_primes(30, 2 * n, 1))
     t = tntt.NTTTables(n, primes)
@@ -633,25 +697,32 @@ def test_cluster_schedule_at_kernel_sizes(logn):
     rng = np.random.default_rng(logn)
     x = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (1, n)))
     tabs = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows([0])
-    for fwd, mont in ((True, False), (True, True), (False, True)):
+    cl = 4 if logn == 18 else 3
+    K, kls = 1 << cl, logn - cl - 5
+    modes = ((True, False), (True, True), (False, True))
+    if logn == 18:
+        modes += ((False, False),)
+    for fwd, mont in modes:
         seen = []
         got = kernel_model(x, k, fwd, mont, banks=True, seen=seen)
         want = (tntt.ntt_fwd(x, tabs, to_mont=mont) if fwd
                 else tntt.ntt_inv(x, tabs, from_mont=mont))
         assert torch.equal(got, want), (fwd, mont)
-        # per block: 3 column passes, 3 run passes
-        assert len(seen) == 2 * 3 * 8
-        kls = logn - 8
+        # per block: 3 column passes, 3 run passes; the second half's
+        # first pass (the exchange) on every block, then the rest
+        assert len(seen) == 2 * 3 * K
         cols = [(5 + kls - 3, 3, 0), (5 + kls - 6, 3, 3), (5, kls - 6, 6)]
-        runs = [(5, 3, kls), (2, 3, kls + 3), (0, 2, kls + 6)]
-        assert seen[:3] == (cols if fwd else runs[::-1])        # rank 0
-        assert seen[24:27] == (runs if fwd else cols[::-1])
+        runs = [(5, cl, kls), (2, 3, kls + cl), (0, 2, kls + cl + 3)]
+        first, second = (cols, runs) if fwd else (runs[::-1], cols[::-1])
+        assert seen[:3] == first                                # rank 0
+        assert seen[3 * K:4 * K] == [second[0]] * K
+        assert seen[4 * K:4 * K + 2] == second[1:]              # rank 0
 
 
-@pytest.mark.parametrize("logn", [18, 20, 21])
+@pytest.mark.parametrize("logn", [19, 20, 21])
 def test_two_pass_schedule_at_kernel_sizes(logn):
-    """The two-pass path (N >= 2^18) at the kernels' own sizes on one row:
-    2^18 splits 8 + 10 (column passes of 3+3+2 k bits), 2^20 10 + 10
+    """The two-pass path (N >= 2^19) at the kernels' own sizes on one row:
+    2^19 splits 9 + 10 (column passes of 3+3+3 k bits), 2^20 10 + 10
     (3+3+2+2), 2^21 10 + 11 (runs of 2^11, 4 a block); run passes of
     block_chunks(b).  Every pass's groups cover its buffer, each
     shared-memory access of a warp hits 32 distinct banks, the column
@@ -666,10 +737,10 @@ def test_two_pass_schedule_at_kernel_sizes(logn):
     x = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (1, n)))
     tabs = tntt.DeviceNTT(t.w, t.wi, t.ninv, t.q, "cpu").rows([0])
     la, lb = two_pass_split(logn)
-    assert (la, lb) == {18: (8, 10), 20: (10, 10), 21: (10, 11)}[logn]
+    assert (la, lb) == {19: (9, 10), 20: (10, 10), 21: (10, 11)}[logn]
     cols = [(pb0, r, la + 5 - pb0 - r) for pb0, r in block_chunks(la + 5)[:-2]]
     runs = [(pb0, r, logn - pb0 - r) for pb0, r in block_chunks(lb)]
-    assert [r for _, r, _ in cols] == {8: [3, 3, 2], 10: [3, 3, 2, 2]}[la]
+    assert [r for _, r, _ in cols] == {9: [3, 3, 3], 10: [3, 3, 2, 2]}[la]
     for fwd in (True, False):
         for mont in (False, True):
             seen = []
@@ -680,6 +751,30 @@ def test_two_pass_schedule_at_kernel_sizes(logn):
             # one row: the column launch's passes, then the run launch's
             first, second = (cols, runs) if fwd else (runs[::-1], cols[::-1])
             assert seen == first + second
+
+
+def test_floor_mod_in_32_bit_arithmetic():
+    """csrc/ntt.cu load_residue_r, the kernels' floor mod of int64 inputs
+    from N = 2^18 up: x = hi * 2^32 + lo, x mod q = (hi mod q) * R + lo mod
+    q with R = 2^32 mod q (a Shoup product with R's companion from rowc),
+    hi mod q a truncated remainder lifted to [0, q): equal to the floor
+    mod over the whole int64 range (both ends, -1, q, -q, random) for
+    primes of 17 to 30 bits."""
+    for bits in (17, 24, 30):
+        q = rns.find_ntt_primes(bits, 1 << 19, 1)[0]
+        k = tntt.kernel_tables(np.ones((1, 2), dtype=np.uint32),
+                               np.ones((1, 2), dtype=np.uint32), [1], [q])
+        r, rsh = (int(k["rowc"][0, c]) for c in (5, 6))
+        assert r == (1 << 32) % q
+        x = torch.as_tensor(np.concatenate([
+            np.random.default_rng(bits).integers(-(1 << 63), (1 << 63) - 1,
+                                                 20000),
+            [-(1 << 63), (1 << 63) - 1, -1, 0, 1, q - 1, q, -q, 1 << 32,
+             -(1 << 32), (1 << 31) - 1, -(1 << 31)]]).astype(np.int64))
+        hm = torch.fmod(x >> 32, q)
+        hm = torch.where(hm < 0, hm + q, hm)
+        got = _add(_shoup(hm, r, rsh, q), (x & MASK) % q, q)
+        assert torch.equal(got, x.remainder(q)), bits
 
 
 # ---------------------------------------------------------------------------
