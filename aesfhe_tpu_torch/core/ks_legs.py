@@ -31,14 +31,16 @@ over limb a of the chunk and byte s of y_a, the digit matrices
 A_e[m, k] = byte_e(conv_w[a, m] 256^s 2^32 mod q_m) give
 S_e = sum_k A_e[m, k] byte_s(y_a) < 2^21, and
 sum_a y_a conv_w[a, m] = (L + 2^16 H) 2^-32 mod q_m with L = S_0 + 2^8 S_1
-and H = S_2 + 2^8 S_3 both below 2^30: one Montgomery step a chunk, the
-chunks' canonical partials added mod q_m (`digit_tables` builds A_e in the
-mma's fragment order, `fold_table` the fold's constants).  A wider digit
-or special set is ceil(width / 8) chunks; the mod-down's v_hat is
-computed once over all K special primes and enters the first chunk's
-fold only.  `convert_digits_model` computes that arithmetic on the CPU,
-step by step, and `ks_modup_model`/`ks_moddown_model` wrap it as the
-kernels do.
+and H = S_2 + 2^8 S_3: one Montgomery step (`digit_tables` builds A_e in
+the mma's fragment order, `fold_table` the fold's constants).  A wider
+digit or special set is ceil(width / 8) chunks whose products the mma
+sums into S_e, folded once a word while the sums keep the fold exact
+(`fold_group`: up to ~7 chunks of 30-bit primes), else every `group`
+chunks with the canonical partials added mod q_m; a digit takes its own
+chunks, not the widest digit's.  The mod-down's v_hat is computed once
+over all K special primes and enters the first fold only.
+`convert_digits_model` computes that arithmetic on the CPU, step by step,
+and `ks_modup_model`/`ks_moddown_model` wrap it as the kernels do.
 
 The kernel-only tables (the digit matrices and the fold's constants) are
 built, and their limits checked, only for tables on a CUDA device
@@ -65,6 +67,10 @@ launches_sub_scale = 0
 launches_modup_chunks = 0
 launches_moddown_chunks = 0
 CHUNK = 8                # primes a conversion kernel takes in one k-step
+# chunk counts whose chunked instance holds its A fragments in registers
+# and folds once; another count, or a fold group below the count, takes the
+# instance compiled for any count (0)
+HELD_CHUNKS = (2, 3)
 # float32 lanes of the vector loop in which XLA:CPU sums the reference's
 # v_hat over K = 8 and K >= 16 (256-bit vectors; `vhat_frac`)
 XLA_LANES = 8
@@ -111,20 +117,12 @@ def lazy_reductions(what: str, terms, rest: int) -> list[int]:
     return cuts
 
 
-def digit_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
-    """The u8 digit matrices of one chunk of a conversion out[m] =
-    sum_a y_a conv[a, m] mod qs[m], y_a < in_primes[a], in mma.sync
-    m16n8k32's A-fragment order: conv [..., A, M] (A <= CHUNK) -> int32
-    [..., MT, 4, 32, 4] (MT = ceil(M / 16) row tiles, digit e, lane,
-    register; uint32 bits), A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32
-    mod q_m), zero past A limbs and M rows (the factor 2^32 cancels the
-    fold's Montgomery step).  Raises unless the kernels' fold is exact for
-    the largest bytes the inputs can have: S_e < 2^21, L = S_0 + 2^8 S_1
-    and H = S_2 + 2^8 S_3 below 2^30, odd primes below 2^31, and the
-    Montgomery step's x = L + 2^16 H + v corr (v <= vmax, corr < q) with
-    floor(x / 2^32) < q, which leaves r in (-q, q): canonical after one
-    conditional addition.  Above 2^15 that holds as x < 2^47; a prime below
-    2^16 has zero bytes 2 and 3 in A, so H = 0 and x < 2^32."""
+def _digit_bytes(conv, qs, in_primes):
+    """The u8 digit matrices of one chunk, conv [..., A, M] (A <= CHUNK) ->
+    (bytes uint8 [..., e, 16 MT, CHUNK, s] of A_e[m, 4a + s] =
+    byte_e(conv[a, m] 256^s 2^32 mod q_m), zero past A limbs and M rows;
+    peaks int64 [..., e, 16 MT], the largest S_e = sum_k A_e[m, k]
+    byte_s(y_a) of each row over inputs y_a < in_primes[a])."""
     conv = np.asarray(conv, dtype=np.int64)
     *lead, A, M = conv.shape
     q = np.asarray(qs, dtype=np.int64)
@@ -147,33 +145,87 @@ def digit_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
     # the largest byte s of a residue below each input prime
     top = np.zeros((CHUNK, 4), dtype=np.int64)
     top[:A] = np.minimum((pin[:, None] - 1) >> e8, 255)
-    peak = (ae.astype(np.int64) * top).sum((-2, -1))      # [..., e, row]
-    low = peak[..., 0, :] + (peak[..., 1, :] << 8)
-    high = peak[..., 2, :] + (peak[..., 3, :] << 8)
-    qrow = np.zeros(16 * MT, dtype=np.int64)
-    qrow[:M] = q
-    qrow[M:] = q[-1]
-    xmax = low + (high << 16) + vmax * (qrow - 1)
-    if peak.max() >= 1 << 21 or max(low.max(), high.max()) >= 1 << 30 or \
-            np.any((xmax >> 32) >= qrow):
-        raise ValueError("digit_tables: a digit product could overflow the "
-                         "32-bit fold")
+    return ae, (ae.astype(np.int64) * top).sum((-2, -1))
+
+
+def _fragments(ae) -> np.ndarray:
+    """Digit matrix bytes [..., e, 16 MT, CHUNK, s] -> int32 [..., MT, 4,
+    32, 4] in mma.sync m16n8k32's A-fragment order (uint32 bits)."""
+    *lead, _, rows, _, _ = ae.shape
     words = np.ascontiguousarray(ae).view("<u4")[..., 0]   # [..., e, row, a]
-    words = words.reshape(tuple(lead) + (4, MT, 16, CHUNK))
+    words = words.reshape(tuple(lead) + (4, rows // 16, 16, CHUNK))
     frag = words[..., FRAG_ROW, FRAG_WORD]                # [..., e, MT, l, r]
     return _bits32(np.moveaxis(frag, -4, -3))
 
 
-def chunked_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
+def fold_group(peaks, qs, vmax: int = 0) -> int:
+    """The chunks one fold of the kernels may take: the largest g such that
+    summing the products of every g consecutive chunks (the last run
+    shorter) keeps the fold exact for every output row.  peaks int64
+    [nch, 4, rows] (each chunk's largest S_e, `_digit_bytes`), qs [M] the
+    output primes (rows past M repeat the last), vmax the largest v_hat
+    (ks_moddown's; it enters the first fold only).  Exact means: every sum
+    S_e < 2^31 (the mma's s32 accumulator), L = S_0 + 2^8 S_1 and
+    H = S_2 + 2^8 S_3 below 2^32 (the fold's 32-bit halves), and
+    x = L + 2^16 H + v corr (corr < q) with floor(x / 2^32) < q, so that
+    the Montgomery step leaves r in (-q, q): canonical after one
+    conditional addition.  Raises if one chunk alone breaks it."""
+    peaks = np.asarray(peaks, dtype=np.int64)
+    nch, _, rows = peaks.shape
+    q = np.asarray([int(v) for v in qs], dtype=np.int64)
+    qrow = np.concatenate([q, np.full(rows - len(q), q[-1])])
+    for g in range(nch, 0, -1):
+        ok = True
+        for c0 in range(0, nch, g):
+            S = peaks[c0:c0 + g].sum(0)                   # [e, rows]
+            low = S[0] + (S[1] << 8)
+            high = S[2] + (S[3] << 8)
+            x = low + (high << 16) + (vmax * (qrow - 1) if c0 == 0 else 0)
+            if S.max() >= 1 << 31 or max(low.max(), high.max()) >= 1 << 32 \
+                    or np.any((x >> 32) >= qrow):
+                ok = False
+                break
+        if ok:
+            return g
+    raise ValueError("digit_tables: a digit product could overflow the "
+                     "32-bit fold")
+
+
+def digit_tables(conv, qs, in_primes, vmax: int = 0) -> np.ndarray:
+    """The u8 digit matrices of one chunk of a conversion out[m] =
+    sum_a y_a conv[a, m] mod qs[m], y_a < in_primes[a], in mma.sync
+    m16n8k32's A-fragment order: conv [..., A, M] (A <= CHUNK) -> int32
+    [..., MT, 4, 32, 4] (MT = ceil(M / 16) row tiles, digit e, lane,
+    register; uint32 bits), A_e[m, 4a + s] = byte_e(conv[a, m] 256^s 2^32
+    mod q_m), zero past A limbs and M rows (the factor 2^32 cancels the
+    fold's Montgomery step).  Raises unless the kernels' fold is exact for
+    the largest bytes the inputs can have (`fold_group`), and for odd
+    primes below 2^31: above 2^15 x < 2^47; a prime below 2^16 has zero
+    bytes 2 and 3 in A, so H = 0 and x < 2^32."""
+    ae, peak = _digit_bytes(conv, qs, in_primes)
+    fold_group(peak.reshape((-1,) + peak.shape[-2:]).max(0)[None], qs, vmax)
+    return _fragments(ae)
+
+
+def chunked_tables(conv, qs, in_primes, vmax: int = 0):
     """`digit_tables` of each chunk of CHUNK limbs: conv [A, M] ->
-    int32 [ceil(A / CHUNK), MT, 4, 32, 4]; in_primes [A] (a limb past the
-    digit's has prime 1: no input, zero bytes)."""
+    (int32 [ceil(A / CHUNK), MT, 4, 32, 4], the chunks a fold may take,
+    `fold_group`); in_primes [A] (a limb past the digit's has prime 1: no
+    input, zero bytes)."""
     conv = np.asarray(conv, dtype=np.int64)
     pin = np.asarray(in_primes, dtype=np.int64)
     nch = -(-conv.shape[0] // CHUNK)
-    return np.stack([digit_tables(conv[c * CHUNK:(c + 1) * CHUNK], qs,
-                                  pin[c * CHUNK:(c + 1) * CHUNK], vmax)
-                     for c in range(nch)])
+    parts = [_digit_bytes(conv[c * CHUNK:(c + 1) * CHUNK], qs,
+                          pin[c * CHUNK:(c + 1) * CHUNK])
+             for c in range(nch)]
+    group = fold_group(np.stack([pk for _, pk in parts]), qs, vmax)
+    return np.stack([_fragments(ae) for ae, _ in parts]), group
+
+
+def chunk_instance(nch: int, group: int) -> int:
+    """The chunked kernels' instance (its NCH) that nch chunks folded every
+    `group` chunks launch."""
+    return nch if nch in HELD_CHUNKS and group >= nch else 0
 
 
 def fold_table(qs, corr=None) -> np.ndarray:
@@ -198,8 +250,10 @@ class ModupTables:
     widest digit's chunks; zero past a digit's limbs) and the basis primes
     `bq` [M]; `cuts[j]`, the limbs before which the plain version reduces
     its lazy sum.  On a CUDA device also the kernel's `kernel_tables()`:
-    the digit matrices `afrag` [J, nch, MT, 4, 32, 4] (`chunked_tables`)
-    and the fold's constants `bfold` [3, M] (`fold_table`); else None."""
+    the digit matrices `afrag` [J, nch, MT, 4, 32, 4] (`chunked_tables`),
+    the fold's constants `bfold` [3, M] (`fold_table`) and `group`, the
+    chunks one fold takes (`fold_group`, the least over the digits); else
+    None."""
 
     def __init__(self, params, level: int, device):
         kst = params.ks_tables(level)
@@ -237,19 +291,22 @@ class ModupTables:
         self.dig = up(dig)
         self.dq, self.dinv, self.dinvsh, self.conv, self.bq = (
             up(_bits32(a)) for a in (dq, dinv, dinvsh, conv, basis))
-        self.afrag = self.bfold = None
+        self.afrag = self.bfold = self.group = None
         if torch.device(device).type == "cuda":
-            self.afrag, self.bfold = self.kernel_tables()
+            self.afrag, self.bfold, self.group = self.kernel_tables()
 
     def kernel_tables(self):
-        """(afrag, bfold) on the tables' device, from their constants."""
+        """(afrag, bfold, group) on the tables' device, from their
+        constants."""
         conv, dq, basis = (_widen(t).cpu().numpy()
                            for t in (self.conv, self.dq, self.bq))
         # a digit's unused limbs have prime 0 here: no input, zero bytes
-        afrag = np.stack([chunked_tables(conv[j], basis, np.maximum(dq[j], 1))
-                          for j in range(self.J)])
-        return (torch.from_numpy(afrag).to(self.bq.device),
-                torch.from_numpy(fold_table(basis)).to(self.bq.device))
+        tabs = [chunked_tables(conv[j], basis, np.maximum(dq[j], 1))
+                for j in range(self.J)]
+        return (torch.from_numpy(np.stack([a for a, _ in tabs]))
+                .to(self.bq.device),
+                torch.from_numpy(fold_table(basis)).to(self.bq.device),
+                min(g for _, g in tabs))
 
 
 class ModdownTables:
@@ -260,8 +317,9 @@ class ModdownTables:
     reduces its lazy sum; `pinv`, sub_scale's table of P^-1 mod q
     (R = l+1).  On a CUDA device also the kernel's `kernel_tables()`:
     conv_w's digit matrices `afrag` [nch, MT, 4, 32, 4] (nch = ceil(K /
-    CHUNK)) and the fold's constants `fold` [3, R] with the correction
-    factor -P 2^32 mod q; else None."""
+    CHUNK)), the fold's constants `fold` [3, R] with the correction
+    factor -P 2^32 mod q, and `group`, the chunks one fold takes
+    (`fold_group`); else None."""
 
     def __init__(self, params, level: int, device):
         mdt = params.md_tables(level)
@@ -283,18 +341,19 @@ class ModdownTables:
         self.inv_p = up((1.0 / np.asarray(sp, dtype=np.float64))
                         .astype(np.float32))
         self.pinv = up(scale_table(qs, mdt["pinv_w"]))
-        self.afrag = self.fold = None
+        self.afrag = self.fold = self.group = None
         if torch.device(device).type == "cuda":
-            self.afrag, self.fold = self.kernel_tables()
+            self.afrag, self.fold, self.group = self.kernel_tables()
 
     def kernel_tables(self):
-        """(afrag, fold) on the tables' device, from their constants."""
+        """(afrag, fold, group) on the tables' device, from their
+        constants."""
         conv, qs, sp, pmod = (_widen(t).cpu().numpy().tolist() for t in
                               (self.conv, self.q, self.sp, self.pmod))
-        afrag = chunked_tables(conv, qs, sp, self.K)
+        afrag, group = chunked_tables(conv, qs, sp, self.K)
         fold = fold_table(qs, [(-pm << 32) % q for pm, q in zip(pmod, qs)])
         return (torch.from_numpy(afrag).to(self.q.device),
-                torch.from_numpy(fold).to(self.q.device))
+                torch.from_numpy(fold).to(self.q.device), group)
 
 
 def scale_table(qs, ws) -> np.ndarray:
@@ -414,32 +473,40 @@ def _digit_matrices(afrag: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def convert_digits_model(y, afrag, fold, vhat=None,
+def convert_digits_model(y, afrag, fold, vhat=None, group: int | None = None,
                          peaks: dict | None = None):
     """The kernels' conversion: y int64 [B, nch * CHUNK, N] (values below
-    2^32; zero past the digit's limbs), afrag [nch, MT, 4, 32, 4], fold
-    [3, M], vhat (ks_moddown's v_hat, int64 [B, 1, N]) -> int64 [B, M, N]
-    canonical, computed as the kernels do, chunk by chunk: the bytes
-    B[4a + s] = byte_s(y_a) of the chunk's limbs, S_e = A_e @ B as int32
-    products, L = S_0 + (S_1 << 8), H = S_2 + (S_3 << 8),
-    x = L + 2^16 H (+ vhat corr in the first chunk), then the Montgomery
-    step m = x_lo q^-1 mod 2^32, r = x_hi - hi(m q), plus q if negative;
-    the chunks' partials added mod q.  `peaks` (if given) gets the largest
-    S_e, L, H and x_hi - q (negative: the fold is canonical)."""
+    2^32; zero past the digit's limbs), afrag [nch, MT, 4, 32, 4] (nch the
+    digit's own chunks), fold [3, M], vhat (ks_moddown's v_hat, int64
+    [B, 1, N]), group (the chunks a fold takes, `fold_group`; all of them
+    by default) -> int64 [B, M, N] canonical, computed as the kernels do:
+    the bytes B[4a + s] = byte_s(y_a) of each chunk's limbs, the chunks'
+    products A_e @ B summed as int32 into S_e over each run of `group`
+    chunks, L = S_0 + (S_1 << 8), H = S_2 + (S_3 << 8) (32-bit),
+    x = L + 2^16 H (+ vhat corr in the first run), then the Montgomery step
+    m = x_lo q^-1 mod 2^32, r = x_hi - hi(m q), plus q if negative; the
+    runs' partials added mod q (one run: one fold a word).  `peaks` (if
+    given) gets the largest S_e, L, H and x_hi - q over the runs (x_hi - q
+    negative: every fold is canonical)."""
     Bn, _, N = y.shape
     M = fold.shape[1]
+    nch = afrag.shape[0]
+    group = nch if group is None else group
     q, qinv, corr = (_widen(fold[i]).reshape(-1, 1) for i in range(3))
     shifts = (8 * torch.arange(4, device=y.device)).reshape(1, 1, 4, 1)
     out = None
-    for c in range(afrag.shape[0]):
-        A = _digit_matrices(afrag[c])                     # [4, Mp, 32]
-        yc = y[:, c * CHUNK:(c + 1) * CHUNK]
-        b = ((yc[:, :, None, :] >> shifts) & 255).reshape(Bn, 4 * CHUNK, N)
-        S = (A[:, None] @ b.to(torch.int32)[None])[:, :, :M].long()
+    for c0 in range(0, nch, group):
+        S = 0
+        for c in range(c0, min(c0 + group, nch)):
+            A = _digit_matrices(afrag[c])                 # [4, Mp, 32]
+            yc = y[:, c * CHUNK:(c + 1) * CHUNK]
+            b = ((yc[:, :, None, :] >> shifts) & 255).reshape(Bn, 4 * CHUNK,
+                                                              N)
+            S = S + (A[:, None] @ b.to(torch.int32)[None])[:, :, :M].long()
         L = S[0] + (S[1] << 8)
         H = S[2] + (S[3] << 8)
         x = L + (H << 16)
-        if vhat is not None and c == 0:
+        if vhat is not None and c0 == 0:
             x = x + vhat * corr
         m = (x & MASK32) * qinv & MASK32
         r = (x >> 32) - ((m * q) >> 32)
@@ -457,22 +524,23 @@ def convert_digits_model(y, afrag, fold, vhat=None,
 def ks_modup_model(c, tab: ModupTables, j0: int, j1: int,
                    peaks: dict | None = None) -> torch.Tensor:
     """ks_modup as the kernel computes it (`convert_digits_model` per
-    digit; a padded digit zero)."""
-    afrag, bfold = tab.kernel_tables() if tab.afrag is None else \
-        (tab.afrag, tab.bfold)
+    digit over its own ceil(cnt / CHUNK) chunks; a padded digit zero)."""
+    afrag, bfold, group = tab.kernel_tables() if tab.afrag is None else \
+        (tab.afrag, tab.bfold, tab.group)
     N = c.shape[-1]
     out = torch.zeros((j1 - j0, tab.M, N), dtype=torch.int64,
                       device=c.device)
     dig = tab.dig.tolist()
     for j in range(j0, min(j1, tab.J)):
         first, cnt = dig[j]
-        y = torch.zeros((1, tab.nch * CHUNK, N), dtype=torch.int64,
+        nch = -(-cnt // CHUNK)
+        y = torch.zeros((1, nch * CHUNK, N), dtype=torch.int64,
                         device=c.device)
         y[0, :cnt] = c[first:first + cnt].long() * \
             _widen(tab.dinv[j, :cnt]).reshape(-1, 1) % \
             _widen(tab.dq[j, :cnt]).reshape(-1, 1)
-        out[j - j0] = convert_digits_model(y, afrag[j], bfold,
-                                           peaks=peaks)[0]
+        out[j - j0] = convert_digits_model(y, afrag[j, :nch], bfold,
+                                           group=group, peaks=peaks)[0]
     return out.to(torch.int32)
 
 
@@ -480,9 +548,9 @@ def ks_moddown_model(d, tab: ModdownTables,
                      peaks: dict | None = None) -> torch.Tensor:
     """ks_moddown as the kernel computes it: the float32 v_hat of
     `vhat_frac` over all K rows, then `convert_digits_model` with the
-    correction folded into the first chunk."""
-    afrag, fold = tab.kernel_tables() if tab.afrag is None else \
-        (tab.afrag, tab.fold)
+    correction folded into the first fold."""
+    afrag, fold, group = tab.kernel_tables() if tab.afrag is None else \
+        (tab.afrag, tab.fold, tab.group)
     K = tab.K
     d3 = d if d.dim() == 3 else d[None]
     y = d3.long() * _widen(tab.sinv).reshape(-1, 1) % \
@@ -491,8 +559,8 @@ def ks_moddown_model(d, tab: ModdownTables,
                        ).to(torch.int64)
     pad = torch.zeros((y.shape[0], tab.nch * CHUNK - K, y.shape[-1]),
                       dtype=torch.int64, device=y.device)
-    out = convert_digits_model(torch.cat([y, pad], 1), afrag, fold,
-                               vhat, peaks)
+    out = convert_digits_model(torch.cat([y, pad], 1), afrag, fold, vhat,
+                               group, peaks)
     return out.reshape(d.shape[:-2] + out.shape[-2:]).to(torch.int32)
 
 
@@ -565,7 +633,7 @@ def ks_modup(c, tab: ModupTables, j0: int, j1: int):
             tab.bfold.data_ptr(), out.data_ptr(), j0, j1 - j0, tab.J, tab.M,
             N)
     err = lib.ks_modup_launch(*args, _stream(c)) if tab.nch == 1 else \
-        lib.ks_modup_chunks_launch(*args, tab.nch, _stream(c))
+        lib.ks_modup_chunks_launch(*args, tab.nch, tab.group, _stream(c))
     if err != 0:
         raise RuntimeError(f"ks_modup kernel launch failed: CUDA error {err}")
     global launches_modup, launches_modup_chunks
@@ -598,7 +666,7 @@ def ks_moddown(d, tab: ModdownTables):
             tab.sinvsh.data_ptr(), tab.inv_p.data_ptr(), tab.afrag.data_ptr(),
             tab.fold.data_ptr(), out.data_ptr(), B, tab.K, tab.R, N)
     err = lib.ks_moddown_launch(*args, _stream(d)) if tab.nch == 1 else \
-        lib.ks_moddown_chunks_launch(*args, tab.nch, _stream(d))
+        lib.ks_moddown_chunks_launch(*args, tab.nch, tab.group, _stream(d))
     if err != 0:
         raise RuntimeError(f"ks_moddown kernel launch failed: CUDA error "
                            f"{err}")
@@ -657,8 +725,8 @@ def _library():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ks_modup_launch.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.ks_moddown_launch.argtypes = [P] * 8 + [I] * 4 + [P]
-        lib.ks_modup_chunks_launch.argtypes = [P] * 8 + [I] * 6 + [P]
-        lib.ks_moddown_chunks_launch.argtypes = [P] * 8 + [I] * 5 + [P]
+        lib.ks_modup_chunks_launch.argtypes = [P] * 8 + [I] * 7 + [P]
+        lib.ks_moddown_chunks_launch.argtypes = [P] * 8 + [I] * 6 + [P]
         lib.sub_scale_launch.argtypes = [P, L, L, P, L, L, P, P] + \
             [I] * 3 + [P]
         for fn in (lib.ks_modup_launch, lib.ks_moddown_launch,

@@ -56,17 +56,13 @@
 //     digit (at or past the level's live ones) writes zeros;
 //   - a digit of more than 8 limbs, or more than 8 special primes, is
 //     nch = ceil(width / 8) chunks of one k-step each, in one launch of
-//     the *_chunks kernels (dynamic shared memory of nch * 8 rows): each
-//     chunk's S_e is folded to a canonical partial before the next
-//     chunk's products, the partials are added mod q, and ks_moddown's
-//     v_hat, computed once over all K rows, enters the first chunk's fold
-//     only.  The chunk's A fragments come from the table (L1) at each
-//     8-column tile instead of living in registers.  A width of <= 8 takes
-//     the kernels above unchanged.
+//     the *_chunks kernels (their own design note below); a width of <= 8
+//     takes the kernels above.
 // The fold is exact for every odd q below 2^31: r lies in
 // (-q, floor(x / 2^32)], and floor(x / 2^32) < 2^15 < q above 2^15, while
 // a prime below 2^16 has zero bytes 2 and 3 in A, so H = 0, x < 2^32 and
-// r in (-q, 0] (ks_legs.digit_tables checks the bound row by row).
+// r in (-q, 0] (ks_legs.digit_tables checks the bound row by row; for
+// summed chunks ks_legs.fold_group).
 // ks_moddown's float32 v_hat follows the port's plain version bit for bit
 // (ks_legs.vhat_frac, XLA:CPU's order): K = 8 as eight rounded products
 // added in halves (t_i + t_{i+4}, then + t_{i+2}, then + t_{i+1}); K >= 16
@@ -329,127 +325,33 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
   return s >= q ? s - q : s;
 }
 
-// The chunked conversion: as convert_block, over nch chunks of kMaxDigit
-// rows of s_y ([nch * kMaxDigit][kCols + 8]) and of `afrag`
-// ([nch][MT][4][32] uint4), each chunk folded to a canonical partial and
-// the partials added mod q; kDown: v_hat (s_vh) P enters the first chunk.
-template <int kCols, bool kDown>
-__device__ __forceinline__ void convert_chunks(
-    const uint32_t* s_y, const uint32_t* s_vh,
-    const uint4* __restrict__ afrag, const uint32_t* __restrict__ fold,
-    uint32_t* __restrict__ out, int M, int N, int col0, int nch) {
-  constexpr int kPitch = kCols + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int MT = (M + 15) >> 4;
-  const int groups = MT >= kWarps ? 1 : kWarps / MT;
-  const int width = kCols / groups;
-  const long long chunk = static_cast<long long>(MT) * 4 * 32;
-  for (int item = warp; item < MT * groups; item += kWarps) {
-    const int mt = item % MT;
-    const int c0 = (item / MT) * width;
-    const int cols = min(width, N - col0 - c0);
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const int m0 = min(r0, M - 1), m1 = min(r1, M - 1);
-    const Fold f0{fold[m0], fold[M + m0], fold[2 * M + m0]};
-    const Fold f1{fold[m1], fold[M + m1], fold[2 * M + m1]};
-    const int lim0 = r0 < M ? cols - 2 * t : 0;
-    const int lim1 = r1 < M ? cols - 2 * t : 0;
-    const uint32_t* y = s_y + t * kPitch + c0 + g;
-    const uint32_t* vhp = s_vh + c0 + 2 * t;
-    const uint4* af = afrag + mt * 4 * 32 + lane;
-    const long long at = col0 + c0 + 2 * t;
-    uint32_t* p0 = out + static_cast<long long>(m0) * N + at;
-    uint32_t* p1 = out + static_cast<long long>(m1) * N + at;
-    for (int i = 0; i < cols; i += 8) {
-      uint2 vh = make_uint2(0, 0);
-      if (kDown) vh = *reinterpret_cast<const uint2*>(vhp + i);
-      uint2 v0 = make_uint2(0, 0), v1 = make_uint2(0, 0);
-      for (int c = 0; c < nch; ++c) {
-        const uint32_t b0 = y[c * kMaxDigit * kPitch + i];
-        const uint32_t b1 = y[(c * kMaxDigit + 4) * kPitch + i];
-        int s[4][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          mma_u8(s[e], __ldg(af + c * chunk + e * 32), b0, b1);
-        v0.x = add_mod(v0.x, fold4(s[0][0], s[1][0], s[2][0], s[3][0], vh.x,
-                                   f0), f0.q);
-        v0.y = add_mod(v0.y, fold4(s[0][1], s[1][1], s[2][1], s[3][1], vh.y,
-                                   f0), f0.q);
-        v1.x = add_mod(v1.x, fold4(s[0][2], s[1][2], s[2][2], s[3][2], vh.x,
-                                   f1), f1.q);
-        v1.y = add_mod(v1.y, fold4(s[0][3], s[1][3], s[2][3], s[3][3], vh.y,
-                                   f1), f1.q);
-        vh = make_uint2(0, 0);
-      }
-      if (i < lim0) *reinterpret_cast<uint2*>(p0 + i) = v0;
-      if (i < lim1) *reinterpret_cast<uint2*>(p1 + i) = v1;
-    }
-  }
+// D += A B for one 16x8 tile, k = 32, u8 x u8 -> s32: the chunks' products
+// accumulate in the mma's C operand.
+__device__ __forceinline__ void mma_u8_acc(int (&d)[4], const uint4& a,
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// ks_modup_kernel for digits of more than kMaxDigit limbs: dq, dinv,
-// dinvsh [jlive, nch * kMaxDigit], afrag [jlive, nch, MT, 4, 32] uint4;
-// dynamic shared memory nch * kMaxDigit rows of kUpCols + 8 words.
-__global__ void __launch_bounds__(kBlock)
-ks_modup_chunks_kernel(const uint4* __restrict__ c,
-                       const int32_t* __restrict__ dig,
-                       const uint32_t* __restrict__ dq,
-                       const uint32_t* __restrict__ dinv,
-                       const uint32_t* __restrict__ dinvsh,
-                       const uint4* __restrict__ afrag,
-                       const uint32_t* __restrict__ bfold,
-                       uint32_t* __restrict__ out, int j0, int jlive, int M,
-                       int N, int nch) {
-  constexpr int kCols = kUpCols, kPitch = kCols + 8;
-  extern __shared__ __align__(16) uint32_t s_dyn[];
-  const int W = nch * kMaxDigit;
-  const int jg = j0 + blockIdx.y;
-  const int col0 = blockIdx.x * kCols;
-  const int n4 = N / 4;
-  uint32_t* o = out + static_cast<long long>(blockIdx.y) * M * N;
-  if (jg >= jlive) {
-    for (int i = threadIdx.x; i < M * (kCols / 4); i += kBlock) {
-      const int m = i / (kCols / 4), col = col0 + 4 * (i % (kCols / 4));
-      if (col < N)
-        *reinterpret_cast<uint4*>(o + static_cast<long long>(m) * N + col) =
-            make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-  const int first = dig[2 * jg], cnt = dig[2 * jg + 1];
-  // a chunk's words: kPer 16-byte loads a thread, all issued before use
-  constexpr int kPer = kMaxDigit * (kCols / 4) / kBlock;
-  static_assert(kPer * kBlock == kMaxDigit * (kCols / 4),
-                "a chunk's words must split evenly over the block");
-#pragma unroll 2
-  for (int a0 = 0; a0 < W; a0 += kMaxDigit) {
-    uint4 v[kPer];
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = threadIdx.x + r * kBlock;
-      const int a = a0 + i / (kCols / 4), col = col0 + 4 * (i % (kCols / 4));
-      v[r] = a < cnt && col < N
-                 ? c[static_cast<long long>(first + a) * n4 + col / 4]
-                 : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = threadIdx.x + r * kBlock;
-      const int a = a0 + i / (kCols / 4), c4 = i % (kCols / 4);
-      if (a < cnt) {
-        const int k = jg * W + a;
-        v[r] = shoup4(v[r], dinv[k], dinvsh[k], dq[k]);
-      }
-      *reinterpret_cast<uint4*>(s_dyn + a * kPitch + 4 * c4) = v[r];
-    }
-  }
-  __syncthreads();
-  const int MT = (M + 15) >> 4;
-  convert_chunks<kCols, false>(
-      s_dyn, nullptr,
-      afrag + static_cast<long long>(jg) * nch * MT * 4 * 32, bfold, o, M,
-      N, col0, nch);
+// 16 bytes global -> shared without registers; valid == false writes zeros
+// (the source is not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// every group of this thread's copies but the newest one has landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // v_hat of one column from its K words y[i * pitch], in vhat1's order for
@@ -482,10 +384,249 @@ __device__ __forceinline__ uint32_t vhat_rows(const uint32_t* y, int pitch,
   return static_cast<uint32_t>(__float2int_rn(f));
 }
 
+// ---------------------------------------------------------------------------
+// The chunked conversions: a digit of more than kMaxDigit limbs, or more
+// than kMaxDigit special primes, as nch chunks of one k-step each.
+//
+// Bound: bytes, 3-8 us at N = 2^16, where a block's latency chain (load,
+// Shoup product, v_hat, products, fold) and one wave of blocks weigh.  A
+// first design ran, for every 8-column tile and chunk after chunk, four
+// __ldg of the chunk's A fragments (L1 traffic of a whole fragment set a
+// tile), four mma, a full fold and a modular addition, as one dependent
+// chain with no tile unrolled, every digit paying for the widest digit's
+// chunks: 9-28 us whatever the size, 21-38% of the bound.  Here:
+//   - one fold an output word: the chunks' products accumulate in the
+//     mma's s32 C operand.  Each chunk adds S_e < 32 * 255^2 < 2^21; the
+//     fold (fold4) needs the sums S_e < 2^31, L = S_0 + 2^8 S_1 and
+//     H = S_2 + 2^8 S_3 below 2^32, and floor(x / 2^32) < q for
+//     x = L + 2^16 H (+ v_hat corr): then r = x_hi - hi(m q) lies in
+//     (-q, x_hi] and one conditional addition makes it canonical.
+//     ks_legs.fold_group reads the largest sums the tables' bytes and the
+//     inputs' primes allow, row by row, and gives the chunks a fold may
+//     take (`group`): all of them up to ~7 chunks of 30-bit primes; past
+//     that the kernel folds every `group` chunks and adds the canonical
+//     partials mod q (v_hat enters the first fold only);
+//   - the A fragments held in registers: a warp owns one 16-row tile and
+//     one column group for the block's life and loads its nch x 4 uint4
+//     once (instances NCH = 2 and 3, the chunk loop unrolled); other chunk
+//     counts, or a fold group below nch, take the NCH = 0 instance, which
+//     reads the fragments from L1 a tile and loops at run time;
+//   - per-digit chunks: a digit of cnt limbs loads, stores and multiplies
+//     ceil(cnt / 8) chunks, not the widest digit's;
+//   - loads overlap the products: a block walks column tiles (kChUpCols,
+//     kChDownCols; grid: kChWaves waves of the blocks the card holds at
+//     once, from the occupancy calculator), the next tile's input rows in
+//     flight by cp.async into the other of two shared buffers while this
+//     tile converts; the Shoup product y = c inv_w is applied in place by
+//     the thread whose copies landed, then the block synchronises;
+//   - the block is MT x G warps (MT = ceil(M / 16) row tiles, G column
+//     groups, G = kChWarps / MT below kChWarps tiles): no warp idles on a
+//     missing tile.
+// ---------------------------------------------------------------------------
+
+// Tile columns (ks_modup_chunks, ks_moddown_chunks), 8-column tiles a warp
+// takes at once, resident waves of the grid, and warps of a block below
+// kChWarps row tiles (`legs_variants` times the alternatives on the card).
+constexpr int kChUpCols = 128, kChDownCols = 256, kChUnroll = 4, kChWaves = 1;
+constexpr int kChWarps = 4;
+constexpr int kChMaxTiles = 16;  // row tiles a block takes: M <= 256
+static_assert(kChUpCols % 32 == 0 && kChDownCols % 32 == 0,
+              "a column group must be whole 8-column tiles");
+
+__host__ __device__ constexpr int ch_groups(int MT) {
+  return MT >= kChWarps ? 1 : kChWarps / MT;
+}
+
+// The block's conversion of one column tile [col0, col0 + kCols) from y
+// in s_y (limb a of chunk c at row c * kMaxDigit + a, rows of kCols + 8
+// words, zero past the limbs and past column N) and the A fragments (`a`
+// held, or `af` read for NCH = 0: [nch][MT][4][32] uint4 from the warp's
+// tile and lane); nch the chunks of this digit (or special set), group the
+// chunks a fold takes.  kDown: subtract v_hat (s_vh) P in the first fold.
+template <int NCH, int kCols, bool kDown>
+__device__ __forceinline__ void convert_tile(
+    const uint32_t* s_y, const uint32_t* s_vh,
+    const uint4 (&a)[NCH > 0 ? NCH : 1][4], const uint4* af, long long chunk,
+    const Fold& f0, const Fold& f1, uint32_t* __restrict__ out, int M,
+    int N, int col0, int c0, int width, int r0, int nch, int group) {
+  constexpr int kPitch = kCols + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cols = min(width, N - col0 - c0);
+  const int lim0 = r0 < M ? cols - 2 * t : 0;
+  const int lim1 = r0 + 8 < M ? cols - 2 * t : 0;
+  const uint32_t* y = s_y + t * kPitch + c0 + g;
+  const uint32_t* vhp = s_vh + c0 + 2 * t;
+  const long long at = col0 + c0 + 2 * t;
+  uint32_t* p0 = out + static_cast<long long>(min(r0, M - 1)) * N + at;
+  uint32_t* p1 = out + static_cast<long long>(min(r0 + 8, M - 1)) * N + at;
+  // the instance for any chunk count takes one tile at a time: unrolled
+  // like the others it spills (ptxas)
+#pragma unroll(NCH > 0 ? kChUnroll : 1)
+  for (int i = 0; i < cols; i += 8) {
+    uint2 vh = make_uint2(0, 0);
+    if (kDown) vh = *reinterpret_cast<const uint2*>(vhp + i);
+    uint2 v0, v1;
+    if (NCH > 0) {
+      int s[4][4] = {};
+#pragma unroll
+      for (int c = 0; c < (NCH > 0 ? NCH : 1); ++c) {
+        if (c < nch) {
+          const uint32_t b0 = y[c * kMaxDigit * kPitch + i];
+          const uint32_t b1 = y[(c * kMaxDigit + 4) * kPitch + i];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mma_u8_acc(s[e], a[c][e], b0, b1);
+        }
+      }
+      v0 = make_uint2(fold4(s[0][0], s[1][0], s[2][0], s[3][0], vh.x, f0),
+                      fold4(s[0][1], s[1][1], s[2][1], s[3][1], vh.y, f0));
+      v1 = make_uint2(fold4(s[0][2], s[1][2], s[2][2], s[3][2], vh.x, f1),
+                      fold4(s[0][3], s[1][3], s[2][3], s[3][3], vh.y, f1));
+    } else {
+      v0 = v1 = make_uint2(0, 0);
+      for (int c0g = 0; c0g < nch; c0g += group) {
+        int s[4][4] = {};
+        for (int c = c0g; c < min(c0g + group, nch); ++c) {
+          const uint32_t b0 = y[c * kMaxDigit * kPitch + i];
+          const uint32_t b1 = y[(c * kMaxDigit + 4) * kPitch + i];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mma_u8_acc(s[e], __ldg(af + c * chunk + e * 32), b0, b1);
+        }
+        v0.x = add_mod(v0.x, fold4(s[0][0], s[1][0], s[2][0], s[3][0],
+                                   vh.x, f0), f0.q);
+        v0.y = add_mod(v0.y, fold4(s[0][1], s[1][1], s[2][1], s[3][1],
+                                   vh.y, f0), f0.q);
+        v1.x = add_mod(v1.x, fold4(s[0][2], s[1][2], s[2][2], s[3][2],
+                                   vh.x, f1), f1.q);
+        v1.y = add_mod(v1.y, fold4(s[0][3], s[1][3], s[2][3], s[3][3],
+                                   vh.y, f1), f1.q);
+        vh = make_uint2(0, 0);
+      }
+    }
+    if (i < lim0) *reinterpret_cast<uint2*>(p0 + i) = v0;
+    if (i < lim1) *reinterpret_cast<uint2*>(p1 + i) = v1;
+  }
+}
+
+// What every chunked block sets up once: its warp's row tile mt, column
+// group (offset c0, width of a kCols tile), the fold constants of its two
+// rows, and (NCH > 0) its A fragments of the nch chunks.
+template <int NCH, int kCols>
+struct ChunkWarp {
+  int r0, c0, width;
+  Fold f0, f1;
+  uint4 a[NCH > 0 ? NCH : 1][4];
+  const uint4* af;  // this warp's fragments in chunk 0 ([nch][MT][4][32])
+  long long chunk;  // uint4 between two chunks' fragments
+
+  __device__ __forceinline__ ChunkWarp(const uint4* __restrict__ afrag,
+                                       const uint32_t* __restrict__ fold,
+                                       int M, int nch) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int MT = (M + 15) >> 4, G = ch_groups(MT);
+    const int mt = warp % MT;
+    width = kCols / G;
+    c0 = (warp / MT) * width;
+    r0 = mt * 16 + (lane >> 2);
+    const int m0 = min(r0, M - 1), m1 = min(r0 + 8, M - 1);
+    f0 = Fold{fold[m0], fold[M + m0], fold[2 * M + m0]};
+    f1 = Fold{fold[m1], fold[M + m1], fold[2 * M + m1]};
+    chunk = static_cast<long long>(MT) * 4 * 32;
+    af = afrag + mt * 4 * 32 + lane;
+#pragma unroll
+    for (int c = 0; c < (NCH > 0 ? NCH : 1); ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        a[c][e] = NCH > 0 && c < nch ? af[c * chunk + e * 32]
+                                     : make_uint4(0, 0, 0, 0);
+  }
+};
+
+// ks_modup_kernel for digits of more than kMaxDigit limbs: dq, dinv,
+// dinvsh [jlive, nch * kMaxDigit], afrag [jlive, nch, MT, 4, 32] uint4
+// (nch the widest digit's chunks); dynamic shared memory two buffers of
+// nch * kMaxDigit rows of kChUpCols + 8 words.  Grid (blocks, J): a block
+// walks the column tiles blockIdx.x, + gridDim.x, ... of digit j0 +
+// blockIdx.y.
+template <int NCH>
+__global__ void __launch_bounds__(kChMaxTiles * 32)
+ks_modup_chunks_kernel(const uint4* __restrict__ c,
+                       const int32_t* __restrict__ dig,
+                       const uint32_t* __restrict__ dq,
+                       const uint32_t* __restrict__ dinv,
+                       const uint32_t* __restrict__ dinvsh,
+                       const uint4* __restrict__ afrag,
+                       const uint32_t* __restrict__ bfold,
+                       uint32_t* __restrict__ out, int j0, int jlive, int M,
+                       int N, int nch, int group) {
+  constexpr int kCols = kChUpCols, kPitch = kCols + 8;
+  extern __shared__ __align__(16) uint32_t s_dyn[];
+  const int W = nch * kMaxDigit;
+  const int jg = j0 + blockIdx.y;
+  const int ntiles = (N + kCols - 1) / kCols;
+  const int n4 = N / 4;
+  uint32_t* o = out + static_cast<long long>(blockIdx.y) * M * N;
+  if (jg >= jlive) {
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
+      for (int i = threadIdx.x; i < M * (kCols / 4); i += blockDim.x) {
+        const int m = i / (kCols / 4);
+        const int col = t * kCols + 4 * (i % (kCols / 4));
+        if (col < N)
+          *reinterpret_cast<uint4*>(o + static_cast<long long>(m) * N +
+                                    col) = make_uint4(0, 0, 0, 0);
+      }
+    return;
+  }
+  const int first = dig[2 * jg], cnt = dig[2 * jg + 1];
+  const int rows = (cnt + kMaxDigit - 1) / kMaxDigit * kMaxDigit;
+  const int words = rows * (kCols / 4);
+  const ChunkWarp<NCH, kCols> w(
+      afrag + static_cast<long long>(jg) * nch * ((M + 15) >> 4) * 4 * 32,
+      bfold, M, rows / kMaxDigit);
+  // the rows of tile t into buffer b, zero past the digit's limbs and N
+  auto load = [&](int t, int b) {
+    uint32_t* buf = s_dyn + b * W * kPitch;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      const int a = i / (kCols / 4), c4 = i % (kCols / 4);
+      const int col = t * kCols + 4 * c4;
+      const bool ok = a < cnt && col < N;
+      cp_async16(buf + a * kPitch + 4 * c4,
+                 ok ? c + static_cast<long long>(first + a) * n4 + col / 4
+                    : c,
+                 ok);
+    }
+  };
+  int b = 0;
+  if (static_cast<int>(blockIdx.x) < ntiles) load(blockIdx.x, 0);
+  cp_async_commit();
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, b ^= 1) {
+    if (t + static_cast<int>(gridDim.x) < ntiles) load(t + gridDim.x, b ^ 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    uint32_t* buf = s_dyn + b * W * kPitch;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      const int a = i / (kCols / 4), c4 = i % (kCols / 4);
+      if (a < cnt) {
+        uint4* p = reinterpret_cast<uint4*>(buf + a * kPitch + 4 * c4);
+        const int k = jg * W + a;
+        *p = shoup4(*p, dinv[k], dinvsh[k], dq[k]);
+      }
+    }
+    __syncthreads();
+    convert_tile<NCH, kCols, false>(buf, nullptr, w.a, w.af, w.chunk, w.f0,
+                                    w.f1, o, M, N, t * kCols, w.c0, w.width,
+                                    w.r0, rows / kMaxDigit, group);
+    __syncthreads();
+  }
+}
+
 // ks_moddown_kernel for more than kMaxDigit special primes: afrag
-// [nch, MT, 4, 32] uint4; dynamic shared memory kDownCols words of v_hat
-// and nch * kMaxDigit rows of kDownCols + 8 words.
-__global__ void __launch_bounds__(kBlock)
+// [nch, MT, 4, 32] uint4; dynamic shared memory kChDownCols words of v_hat
+// and two buffers of nch * kMaxDigit rows of
+// kChDownCols + 8 words.  Grid (blocks, B): a block walks the column tiles
+// blockIdx.x, + gridDim.x, ... of component blockIdx.y.
+template <int NCH>
+__global__ void __launch_bounds__(kChMaxTiles * 32)
 ks_moddown_chunks_kernel(const uint32_t* __restrict__ d,
                          const uint32_t* __restrict__ sp,
                          const uint32_t* __restrict__ sinv,
@@ -494,38 +635,52 @@ ks_moddown_chunks_kernel(const uint32_t* __restrict__ d,
                          const uint4* __restrict__ afrag,
                          const uint32_t* __restrict__ fold,
                          uint32_t* __restrict__ out, int K, int R, int N,
-                         int nch) {
-  constexpr int kCols = kDownCols, kPitch = kCols + 8;
+                         int nch, int group) {
+  constexpr int kCols = kChDownCols, kPitch = kCols + 8;
   extern __shared__ __align__(16) uint32_t s_dyn[];
   uint32_t* s_vh = s_dyn;
-  uint32_t* s_y = s_dyn + kCols;
   const int W = nch * kMaxDigit;
-  const int b = blockIdx.y;
-  const int col0 = blockIdx.x * kCols;
-  for (int c = threadIdx.x; c < kCols; c += kBlock) {
-    const int col = col0 + c;
-    // a chunk's kMaxDigit words of the column, all loaded before use
-#pragma unroll 2
-    for (int i0 = 0; i0 < W; i0 += kMaxDigit) {
-      uint32_t x[kMaxDigit];
-#pragma unroll
-      for (int l = 0; l < kMaxDigit; ++l)
-        x[l] = i0 + l < K && col < N
-                   ? d[(static_cast<long long>(b) * K + i0 + l) * N + col]
-                   : 0u;
-#pragma unroll
-      for (int l = 0; l < kMaxDigit; ++l) {
-        const int i = i0 + l;
-        s_y[i * kPitch + c] =
-            i < K ? shoup(x[l], sinv[i], sinvsh[i], sp[i]) : 0u;
+  const int ntiles = (N + kCols - 1) / kCols;
+  const int words = W * (kCols / 4);
+  const uint4* dc = reinterpret_cast<const uint4*>(
+      d + static_cast<long long>(blockIdx.y) * K * N);
+  uint32_t* o = out + static_cast<long long>(blockIdx.y) * R * N;
+  const ChunkWarp<NCH, kCols> w(afrag, fold, R, nch);
+  auto load = [&](int t, int b) {
+    uint32_t* buf = s_dyn + kCols + b * W * kPitch;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      const int r = i / (kCols / 4), c4 = i % (kCols / 4);
+      const int col = t * kCols + 4 * c4;
+      const bool ok = r < K && col < N;
+      cp_async16(buf + r * kPitch + 4 * c4,
+                 ok ? dc + (static_cast<long long>(r) * N + col) / 4 : dc,
+                 ok);
+    }
+  };
+  int b = 0;
+  if (static_cast<int>(blockIdx.x) < ntiles) load(blockIdx.x, 0);
+  cp_async_commit();
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, b ^= 1) {
+    if (t + static_cast<int>(gridDim.x) < ntiles) load(t + gridDim.x, b ^ 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    uint32_t* buf = s_dyn + kCols + b * W * kPitch;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      const int r = i / (kCols / 4), c4 = i % (kCols / 4);
+      if (r < K) {
+        uint4* p = reinterpret_cast<uint4*>(buf + r * kPitch + 4 * c4);
+        *p = shoup4(*p, sinv[r], sinvsh[r], sp[r]);
       }
     }
-    s_vh[c] = vhat_rows(s_y + c, kPitch, inv_p, K);
+    __syncthreads();
+    for (int cl = threadIdx.x; cl < kCols; cl += blockDim.x)
+      s_vh[cl] = vhat_rows(buf + cl, kPitch, inv_p, K);
+    __syncthreads();
+    convert_tile<NCH, kCols, true>(buf, s_vh, w.a, w.af, w.chunk, w.f0,
+                                   w.f1, o, R, N, t * kCols, w.c0, w.width,
+                                   w.r0, nch, group);
+    __syncthreads();
   }
-  __syncthreads();
-  convert_chunks<kCols, true>(s_y, s_vh, afrag, fold,
-                              out + static_cast<long long>(b) * R * N, R, N,
-                              col0, nch);
 }
 
 // x: [B, R, n4] uint4 through strides (xb, xr, in uint4 units); y likewise;
@@ -588,16 +743,94 @@ extern "C" int ks_moddown_launch(const void* d, const void* sp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunked conversions (nch chunks of kMaxDigit primes): the same
-// arguments and grids as the launchers above.  The dynamic shared memory
-// passes 48 KB only past 5 (ks_moddown) or 11 (ks_modup) chunks; the
-// launch then asks for more, up to the card's limit, or fails.
+// The chunked conversions (nch chunks of kMaxDigit primes, `group` of them
+// a fold): the same arguments as the launchers above.  The instance:
+// NCH = nch for 2 and 3 chunks folded once, else NCH = 0.  The grid:
+// kChWaves times the blocks the card holds at once (the occupancy
+// calculator; cached per instance and shape, so a launch inside a CUDA
+// graph capture asks nothing), at most one block a column tile.  A kernel
+// that needs dynamic shared memory past 48 KB (3 chunks of the mod-down, 6
+// of ks_modup) is allowed the card's limit once, or the launch fails.
+namespace {
+
+struct ChShape {
+  int threads, smem;
+};
+
+ChShape ch_shape(bool down, int nch, int M) {
+  const int MT = (M + 15) / 16;
+  const int cols = down ? kChDownCols : kChUpCols;
+  return ChShape{32 * MT * ch_groups(MT),
+                 static_cast<int>(sizeof(uint32_t)) *
+                     ((down ? cols : 0) + 2 * nch * kMaxDigit * (cols + 8))};
+}
+
+// blocks of `kernel` resident at once on the card at this shape
 template <typename Kernel>
-inline int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+int ch_resident(Kernel kernel, const ChShape& sh, int* out) {
+  struct Entry {
+    const void* fn;
+    int threads, smem, blocks;
+  };
+  static Entry cache[32];
+  static int used = 0, sms = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == reinterpret_cast<const void*>(kernel) &&
+        cache[i].threads == sh.threads && cache[i].smem == sh.smem) {
+      *out = cache[i].blocks;
+      return 0;
+    }
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err && sms == 0)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int optin = 0;
+  if (!err && sh.smem > 48 * 1024)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err && sh.smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (!err)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        sh.threads, sh.smem);
+  if (err) return static_cast<int>(err);
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *out = per_sm * sms;
+  if (used < 32) cache[used++] = Entry{reinterpret_cast<const void*>(kernel),
+                                       sh.threads, sh.smem, *out};
+  return 0;
+}
+
+inline int ch_instance(int nch, int group) {
+  return (nch == 2 || nch == 3) && group >= nch ? nch : 0;
+}
+
+// a grid of (blocks, gy) over column tiles of `cols`: kChWaves resident
+// waves of blocks, each walking its tiles
+template <typename Kernel, typename... Args>
+int ch_launch(Kernel kernel, const ChShape& sh, int cols, int gy, int N,
+              void* stream, Args... args) {
+  int resident = 0;
+  if (const int err = ch_resident(kernel, sh, &resident)) return err;
+  const int ntiles = (N + cols - 1) / cols;
+  const int gx = min(ntiles, (resident * kChWaves + gy - 1) / gy);
+  kernel<<<dim3(gx, gy), sh.threads, sh.smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// (threads, dynamic shared bytes) of a chunked launch: out[0], out[1]
+extern "C" int ks_chunks_shape(int down, int nch, int M, int* out) {
+  if (nch < 1 || M < 1 || (M + 15) / 16 > kChMaxTiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ChShape sh = ch_shape(down != 0, nch, M);
+  out[0] = sh.threads;
+  out[1] = sh.smem;
+  return 0;
 }
 
 extern "C" int ks_modup_chunks_launch(const void* c, const void* dig,
@@ -605,19 +838,23 @@ extern "C" int ks_modup_chunks_launch(const void* c, const void* dig,
                                       const void* dinvsh, const void* afrag,
                                       const void* bfold, void* out, int j0,
                                       int J, int jlive, int M, int N, int nch,
-                                      void* stream) {
-  const size_t smem =
-      sizeof(uint32_t) * nch * kMaxDigit * (kUpCols + 8);
-  if (const int err = set_smem(ks_modup_chunks_kernel, smem)) return err;
-  const dim3 grid((N + kUpCols - 1) / kUpCols, J);
-  ks_modup_chunks_kernel<<<grid, kBlock, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(c), static_cast<const int32_t*>(dig),
-      static_cast<const uint32_t*>(dq), static_cast<const uint32_t*>(dinv),
-      static_cast<const uint32_t*>(dinvsh), static_cast<const uint4*>(afrag),
-      static_cast<const uint32_t*>(bfold), static_cast<uint32_t*>(out), j0,
-      jlive, M, N, nch);
-  return static_cast<int>(cudaGetLastError());
+                                      int group, void* stream) {
+  if (nch < 1 || group < 1 || (M + 15) / 16 > kChMaxTiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ChShape sh = ch_shape(false, nch, M);
+  const auto kernel = ch_instance(nch, group) == 2 ? ks_modup_chunks_kernel<2>
+                      : ch_instance(nch, group) == 3
+                          ? ks_modup_chunks_kernel<3>
+                          : ks_modup_chunks_kernel<0>;
+  return ch_launch(kernel, sh, kChUpCols, J, N, stream,
+                   static_cast<const uint4*>(c),
+                   static_cast<const int32_t*>(dig),
+                   static_cast<const uint32_t*>(dq),
+                   static_cast<const uint32_t*>(dinv),
+                   static_cast<const uint32_t*>(dinvsh),
+                   static_cast<const uint4*>(afrag),
+                   static_cast<const uint32_t*>(bfold),
+                   static_cast<uint32_t*>(out), j0, jlive, M, N, nch, group);
 }
 
 extern "C" int ks_moddown_chunks_launch(const void* d, const void* sp,
@@ -625,20 +862,24 @@ extern "C" int ks_moddown_chunks_launch(const void* d, const void* sp,
                                         const void* inv_p, const void* afrag,
                                         const void* fold, void* out, int B,
                                         int K, int R, int N, int nch,
-                                        void* stream) {
-  const size_t smem =
-      sizeof(uint32_t) * (kDownCols + nch * kMaxDigit * (kDownCols + 8));
-  if (const int err = set_smem(ks_moddown_chunks_kernel, smem)) return err;
-  const dim3 grid((N + kDownCols - 1) / kDownCols, B);
-  ks_moddown_chunks_kernel<<<grid, kBlock, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(d), static_cast<const uint32_t*>(sp),
-      static_cast<const uint32_t*>(sinv),
-      static_cast<const uint32_t*>(sinvsh),
-      static_cast<const float*>(inv_p), static_cast<const uint4*>(afrag),
-      static_cast<const uint32_t*>(fold), static_cast<uint32_t*>(out), K, R,
-      N, nch);
-  return static_cast<int>(cudaGetLastError());
+                                        int group, void* stream) {
+  if (nch < 1 || group < 1 || (R + 15) / 16 > kChMaxTiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ChShape sh = ch_shape(true, nch, R);
+  const auto kernel = ch_instance(nch, group) == 2
+                          ? ks_moddown_chunks_kernel<2>
+                      : ch_instance(nch, group) == 3
+                          ? ks_moddown_chunks_kernel<3>
+                          : ks_moddown_chunks_kernel<0>;
+  return ch_launch(kernel, sh, kChDownCols, B, N, stream,
+                   static_cast<const uint32_t*>(d),
+                   static_cast<const uint32_t*>(sp),
+                   static_cast<const uint32_t*>(sinv),
+                   static_cast<const uint32_t*>(sinvsh),
+                   static_cast<const float*>(inv_p),
+                   static_cast<const uint4*>(afrag),
+                   static_cast<const uint32_t*>(fold),
+                   static_cast<uint32_t*>(out), K, R, N, nch, group);
 }
 
 extern "C" int sub_scale_launch(const void* x, long long xb, long long xr,

@@ -31,11 +31,12 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      digit, a range of padding only), both conversions on byte-extreme
      inputs (K = 8 and 4), ks_moddown on inputs at float32 half-integers
      of v_hat's sum (K = 8 and 4), sub_scale on strided views; then both
-     conversions past one k-step (WIDE_SETS at N=2^16: 9, 10 and 16 special
-     primes, digits of 9 and 16 limbs; the chunked instances) and over the
-     chain of primes below 2^16 (SMALL_PRIMES' tables, 2^16 columns), at
-     the top and a middle level, on random, byte-extreme and (mod-down)
-     half-integer inputs;
+     conversions past one k-step (WIDE_SETS at N=2^16: 9, 10, 16 and 20
+     special primes, digits of 9, 16 and 21 limbs: two and three chunks;
+     the chunked instances, their ptxas lines and resident blocks an SM)
+     and over the chain of primes below 2^16 (SMALL_PRIMES' tables, 2^16
+     columns), at the top and a middle level, on random, byte-extreme and
+     (mod-down) half-integer inputs;
   3b. key-switch phase: one relinearization (of a product, rescaled) and
      one rotation at each of WIDE_SETS (N=2^16) and SMALL_PRIMES (N=2^10,
      the largest ring its primes exist for), from seeded keys, decrypted
@@ -198,25 +199,14 @@ LARGE_LOGN = 18
 LARGE_KS = dict(n=1 << 20, max_level=6, scale_bits=29, num_special_primes=2)
 LARGE_HP = dict(n=1 << 20, max_level=6, scale_bits=52, num_special_primes=6)
 ZETA_ROUNDS = 10
-# Parameter sets past one k-step of the conversion kernels (8 primes): 9,
-# 10 and 16 special primes, and digits of 9 (alpha 9) and 16 limbs (alpha
-# 16); prod_boot's scale and secret weight on a 13-prime chain (21 for
-# alpha 16).  (top, middle) levels: the middle one keeps a digit past 8
-# limbs.
-WIDE_SETS = {"K=9": dict(num_special_primes=9),
-             "K=10": dict(num_special_primes=10),
-             "K=16": dict(num_special_primes=16),
-             "alpha=9": dict(num_special_primes=10, alpha=9),
-             "alpha=16": dict(max_level=20, num_special_primes=16, alpha=16)}
-WIDE_SETS = {k: dict(dict(n=1 << 16, max_level=12, scale_bits=27,
-                          secret_hamming=192), **v)
-             for k, v in WIDE_SETS.items()}
-WIDE_MIDDLE = {"K=9": 9, "K=10": 10, "K=16": 9, "alpha=9": 9, "alpha=16": 16}
-# The chain of primes below 2^16 (30, 15, 14, 16, 16 bits; specials of
-# 30): scale 2^14 needs primes 1 mod 2N near 2^14, which exist up to
-# N=2^11, so it runs at N=2^10; its conversion tables are held at 2^16
-# columns in the kernel phase.
-SMALL_PRIMES = dict(n=1 << 10, max_level=4, scale_bits=14)
+# Parameter sets past one k-step of the conversion kernels (8 primes) and
+# the chain of primes below 2^16: legs_variants.SETS (9, 10, 16 and 20
+# special primes, digits of 9, 16 and 21 limbs; two and three chunks), its
+# (top, middle) levels, and SMALL_PRIMES at N=2^10 (its tables held at
+# 2^16 columns in the kernel phase).
+WIDE_SETS = legs_variants.SETS
+WIDE_MIDDLE = legs_variants.SETS_MIDDLE
+SMALL_PRIMES = legs_variants.SMALL_PRIMES
 
 
 T0 = time.perf_counter()
@@ -627,6 +617,24 @@ def legs_case(name: str, label: str, run, plain, work) -> dict:
                 bound_by=bound_by)
 
 
+_RESIDENCY: set = set()
+
+
+def chunk_residency(name: str, nch: int, group: int, M: int):
+    """Print, once a shape, a chunked launch's threads, dynamic shared
+    memory and resident blocks an SM (legs_variants.occupancy)."""
+    if (name, nch, group, M) in _RESIDENCY:
+        return
+    _RESIDENCY.add((name, nch, group, M))
+    lib = ks_legs._library()
+    threads, smem = legs_variants.chunk_launch(lib, True, name, nch, M)
+    inst = f"{name}<{ks_legs.chunk_instance(nch, group)}>"
+    per_sm = legs_variants.occupancy(kernels.library_path("ks_legs"),
+                                     {inst: (threads, smem)})[inst]
+    print(f"{inst} nch={nch} group={group} M={M}: {threads} threads, {smem} "
+          f"bytes of shared memory, {per_sm} blocks an SM", flush=True)
+
+
 def half_integer_specials(params, level: int, B: int, rng, dev,
                           n: int | None = None):
     """The special rows d [B, K, n] (plain, canonical; n = N by default) of
@@ -690,6 +698,8 @@ def ks_legs_cases(params, rng, dev) -> list:
         work = ks_legs.modup_work(sum(tab.dig[j0:j0 + live, 1].tolist()),
                                   j1 - j0, tab.M, c.shape[-1])
         name = "ks_modup_chunks" if tab.nch > 1 else "ks_modup"
+        if tab.nch > 1:
+            chunk_residency(name, tab.nch, tab.group, tab.M)
         out = legs_case(name, f"{tag} digits [{j0}, {j1}) of {tab.J}",
                         lambda: ks_legs.ks_modup(c, tab, j0, j1),
                         lambda: ks_legs.ks_modup_plain(c, tab, j0, j1), work)
@@ -715,6 +725,8 @@ def ks_legs_cases(params, rng, dev) -> list:
             d = residues(p, range(p.num_q, p.L_tot), (2,), n)
         work = ks_legs.moddown_work(d.shape[0], tab.K, tab.R, d.shape[-1])
         name = "ks_moddown_chunks" if tab.nch > 1 else "ks_moddown"
+        if tab.nch > 1:
+            chunk_residency(name, tab.nch, tab.group, tab.R)
         return legs_case(name, f"{tag} K={tab.K}",
                          lambda: ks_legs.ks_moddown(d, tab),
                          lambda: ks_legs.ks_moddown_plain(d, tab), work)

@@ -406,12 +406,14 @@ def test_ks_legs_kernels_equal_plain(level):
 
 
 # parameter sets past one k-step of the conversion kernels (digits or
-# special sets of more than 8 primes: chunked conversions) and a chain of
-# primes below 2^16 (30, 15, 14, 16, 16 bits), on N=2^10 tables
+# special sets of more than 8 primes: chunked conversions; k20 three chunks
+# each way) and a chain of primes below 2^16 (30, 15, 14, 16, 16 bits), on
+# N=2^10 tables
 WIDE = {"k9": dict(num_special_primes=9), "k10": dict(num_special_primes=10),
         "k16": dict(num_special_primes=16),
         "alpha9": dict(num_special_primes=10, alpha=9),
-        "alpha16": dict(max_level=20, num_special_primes=16, alpha=16)}
+        "alpha16": dict(max_level=20, num_special_primes=16, alpha=16),
+        "k20": dict(max_level=20, num_special_primes=20)}
 WIDE = {k: dict(dict(n=1 << 10, max_level=12, scale_bits=26), **v)
         for k, v in WIDE.items()}
 WIDE["scale14"] = dict(n=1 << 10, max_level=4, scale_bits=14)
@@ -499,6 +501,59 @@ def test_wide_and_small_prime_legs_equal_plain(name, monkeypatch):
         (before[0] + 1, before[1] + 1)
     for g, w_ in zip(got_ks, want_ks):
         assert torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("name,group", [("k20", 1), ("k20", 2),
+                                        ("k72", None)])
+def test_chunked_fold_groups_equal_plain(name, group):
+    """The chunked instance compiled for any chunk count (fragments read
+    a tile, a run-time chunk loop): three chunks folded every chunk or
+    every two (the tables' fold group overridden: folding more often is
+    exact wherever one fold is), and 72 special primes (nine chunks, one
+    digit of 5 limbs) at the group its tables give; ks_modup on every
+    digit and byte-extreme inputs, ks_moddown on random and byte-extreme
+    rows, equal to the plain versions at N = 2^12, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kw = WIDE[name] if name in WIDE else dict(
+        n=1 << 10, max_level=4, scale_bits=26, num_special_primes=72)
+    p = CKKSParams(**kw)
+    n, level = 1 << 12, p.top_level
+    rng = np.random.default_rng(3)
+    up = ks_legs.ModupTables(p, level, "cuda")
+    down = ks_legs.ModdownTables(p, level, "cuda")
+    if group is not None:
+        up.group = down.group = group
+    qs, ps = p.q_primes[:level + 1], p.special_primes
+    inv = [0] * (level + 1)
+    for g in p.ks_tables(level)["groups"]:
+        for i, w in zip(g["limbs"], g["inv_w"]):
+            inv[i] = w
+    cs = [torch.as_tensor(rng.integers(0, 1 << 62, (level + 1, n)) %
+                          np.asarray(qs)[:, None], device="cuda").int(),
+          torch.as_tensor(ks_legs.byte_extremes(
+              qs, inv, np.full((level + 1, n), 2)), device="cuda").int()]
+    ds = [torch.as_tensor(rng.integers(0, 1 << 62, (2, len(ps), n)) %
+                          np.asarray(ps)[:, None], device="cuda").int(),
+          torch.as_tensor(np.stack([ks_legs.byte_extremes(
+              ps, p.md_tables(level)["inv_w"], np.full((len(ps), n), 2))]
+              * 2),
+              device="cuda").int()]
+    if name == "k20":
+        assert up.nch == down.nch == 3
+    else:
+        assert down.nch == 9 and down.group == 9 and up.nch == 1
+    for c in cs:
+        before = ks_legs.launches_modup_chunks
+        assert torch.equal(ks_legs.ks_modup(c, up, 0, up.J),
+                           ks_legs.ks_modup_plain(c, up, 0, up.J))
+        assert ks_legs.launches_modup_chunks == before + (up.nch > 1)
+    for d in ds:
+        before = ks_legs.launches_moddown_chunks
+        assert torch.equal(ks_legs.ks_moddown(d, down),
+                           ks_legs.ks_moddown_plain(d, down))
+        assert ks_legs.launches_moddown_chunks == before + 1
+    torch.cuda.synchronize()
 
 
 def test_keyswitch_graph_replay_equals_eager():

@@ -37,8 +37,9 @@ CHAIN_B = dict(n=1 << 10, max_level=54, scale_bits=27, num_special_primes=8,
 # 2^16 (30, 15, 14, 16, 16 bits; specials of 30), all on N=2^10
 WIDE = {"k9": dict(num_special_primes=9), "k10": dict(num_special_primes=10),
         "k16": dict(num_special_primes=16),
-        "alpha9": dict(num_special_primes=10, alpha=9)}
-WIDE = {k: dict(n=1 << 10, max_level=12, scale_bits=26, **v)
+        "alpha9": dict(num_special_primes=10, alpha=9),
+        "k20": dict(max_level=20, num_special_primes=20)}
+WIDE = {k: dict(dict(n=1 << 10, max_level=12, scale_bits=26), **v)
         for k, v in WIDE.items()}
 WIDE["scale14"] = dict(n=1 << 10, max_level=4, scale_bits=14)
 # one wide level each: (profile, level), K = 2, 3, 6, 8; then digits of 9,
@@ -182,12 +183,13 @@ def test_mod_down_matches_reference(name, level):
         assert torch.equal(tops._mod_down_specials(tp, tabs, x, level), want)
 
 
-@pytest.fixture(scope="module", params=["k16", "scale14"])
+@pytest.fixture(scope="module", params=["k16", "k20", "scale14"])
 def keyed(request):
     """One seeded key family (secret, public, relinearization and the step-1
     rotation key) on each side, drawn in the same order from the same seed
     (the reference's module RNG is put back afterwards), at k16 (one digit
-    of 13 limbs, K = 16) and scale14 (primes below 2^16)."""
+    of 13 limbs, K = 16), k20 (one digit of 21 limbs, K = 20: three chunks
+    each way) and scale14 (primes below 2^16)."""
     from aesfhe_tpu.core import keys as jkeys
     name = request.param
     jp, tp, _ = _pair(name)
@@ -414,9 +416,12 @@ def test_named_ranges_and_their_split():
 
 # the kernels' main-path shapes: prod_boot's levels 54, 28 and 24 (K = 8,
 # digits of 8 limbs) and bench's widest switch (level 15, K = 4); then two
-# chunks (k16: one digit of 13 limbs, K = 16) and the primes below 2^16
+# chunks (k16: one digit of 13 limbs, K = 16; k9: digits of 9 and 4 limbs,
+# the second narrower than the widest, K = 9), three (k20: one digit of 21
+# limbs, K = 20) and the primes below 2^16
 MODEL_CASES = [("prod_boot", 54), ("prod_boot", 28), ("prod_boot", 24),
-               ("bench", 15), ("k16", 12), ("scale14", 4)]
+               ("bench", 15), ("k16", 12), ("k9", 12), ("k20", 20),
+               ("scale14", 4)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -428,10 +433,10 @@ def _port_params(name):
 
 
 def _extreme(primes, inv_w, kind, rng, n):
-    """Residues whose y = c inv_w mod q are random ("random"), the largest
-    residue with three 0xFF bytes everywhere ("0xFF"), or a per-word mix
-    of that, q - 1 and 0 ("mix")."""
-    if kind == "random":
+    """Residues whose y = c inv_w mod q are random ("random"; also "half"),
+    the largest residue with three 0xFF bytes everywhere ("0xFF"), or a
+    per-word mix of that, q - 1 and 0 ("mix")."""
+    if kind in ("random", "half"):
         q = np.asarray([int(v) for v in primes], dtype=np.int64)[:, None]
         return rng.integers(0, 1 << 62, (len(primes), n)) % q
     pick = np.full((len(primes), n), 2) if kind == "0xFF" else \
@@ -439,17 +444,34 @@ def _extreme(primes, inv_w, kind, rng, n):
     return ks_legs.byte_extremes(primes, inv_w, pick)
 
 
-@pytest.mark.parametrize("kind", ["random", "0xFF", "mix"])
+def _half_specials(p, level, rng, n):
+    """Special rows [2, K, n] whose float32 sums sum_i y_i/p_i lie within a
+    few 1e-8 of a half-integer (`_half_integer_input`'s construction)."""
+    K, ps = p.num_special, np.asarray(p.special_primes, dtype=np.int64)
+    y = rng.integers(0, 1 << 62, (2, K, n)) % ps[:, None]
+    rest = (y[:, 1:] / ps[1:, None]).sum(1)
+    y0 = np.round((np.ceil(rest - 0.5) + 0.5 - rest) * ps[0]).astype(np.int64)
+    y[:, 0] = np.clip(y0 + rng.integers(-40, 41, (2, n)), 0, ps[0] - 1)
+    inv_w = np.asarray(p.md_tables(level)["inv_w"], dtype=np.int64)
+    w = np.array([pow(int(a), -1, int(q)) for a, q in zip(inv_w, ps)])
+    return (y * w[:, None]) % ps[:, None]
+
+
+@pytest.mark.parametrize("kind", ["random", "0xFF", "mix", "half"])
 @pytest.mark.parametrize("name,level", MODEL_CASES)
 def test_digit_model_equals_plain(name, level, kind):
     """The CPU model of the conversion kernels (the digit matrices A_e as
-    the kernels read them, the bytes of y, S_e as int32 products, the
-    32-bit fold) is torch.equal to ks_modup_plain (every digit, and a mesh
-    range [J - 1, J + 1) whose last digit is padding) and to
-    ks_moddown_plain (one component and two) at N = 2^9, on random inputs
-    and on inputs that maximise every byte; S_e < 2^21, L, H < 2^30 and
-    the Montgomery step's x below q 2^32 (its result canonical after one
-    addition), also chunk by chunk and for primes below 2^16."""
+    the kernels read them, the bytes of y, the chunks' S_e summed as int32
+    products, one 32-bit fold a word where the tables' fold group takes
+    every chunk, a digit over its own chunks) is torch.equal to
+    ks_modup_plain (every digit, and a mesh range [J - 1, J + 1) whose
+    last digit is padding) and to ks_moddown_plain (one component and two)
+    at N = 2^9, on random inputs, on inputs that maximise every byte and
+    (mod-down) on rows at float32 half-integers of v_hat's sum; over the
+    whole digit S_e < 2^31 and within the chunks' 32 * 255^2 each,
+    L, H < 2^32 and the Montgomery step's x_hi below q (its result
+    canonical after one addition), for 1, 2 and 3 chunks and for primes
+    below 2^16."""
     p = _port_params(name)
     rng = np.random.default_rng(level)
     n = 1 << 9
@@ -466,14 +488,20 @@ def test_digit_model_equals_plain(name, level, kind):
         assert torch.equal(got, ks_legs.ks_modup_plain(c, up, j0, j1))
     assert not got[1:].any()
     down = ks_legs.ModdownTables(p, level, "cpu")
-    d = torch.as_tensor(np.stack([_extreme(
-        p.special_primes, p.md_tables(level)["inv_w"], kind, rng, n)
-        for _ in range(2)])).to(torch.int32)
+    d = torch.as_tensor(_half_specials(p, level, rng, n) if kind == "half"
+                        else np.stack([_extreme(
+                            p.special_primes, p.md_tables(level)["inv_w"],
+                            kind, rng, n) for _ in range(2)])
+                        ).to(torch.int32)
     for x in (d, d[0]):
         assert torch.equal(ks_legs.ks_moddown_model(x, down, peaks),
                            ks_legs.ks_moddown_plain(x, down))
-    assert peaks["S"] < 1 << 21
-    assert max(peaks["L"], peaks["H"]) < 1 << 30
+    assert up.kernel_tables()[2] == up.nch
+    assert down.kernel_tables()[2] == down.nch
+    nch = max(up.nch, down.nch)
+    assert nch == {"k16": 2, "k9": 2, "k20": 3}.get(name, 1)
+    assert peaks["S"] < min(nch * 32 * 255 ** 2, 1 << 31)
+    assert max(peaks["L"], peaks["H"]) < 1 << 32
     assert peaks["xq"] < 0
 
 
@@ -494,8 +522,42 @@ def test_tables_on_the_cpu_take_any_digit():
     MT = -(-up.M // 16)
     assert up.kernel_tables()[0].shape == (2, 2, MT, 4, 32, 4)
     assert down.kernel_tables()[0].shape == (2, 1, 4, 32, 4)
+    assert up.group is None and up.kernel_tables()[2] == 2
     with pytest.raises(ValueError, match="at most 8"):
         ks_legs.digit_tables(np.ones((9, 3)), [7, 11, 13], [5] * 9)
+
+
+def test_fold_group_splits_where_one_fold_overflows():
+    """A constructed conversion of 20 chunks (160 limbs with inputs below
+    2^31 - 1, every y_a byte-extreme, random conv_w into 24 primes near
+    2^30): the sums of all 20 chunks' products would pass L < 2^32, so
+    fold_group gives fewer chunks a fold; the CPU model, folding every
+    `group` chunks and adding the canonical partials mod q, equals the
+    conversion in Python integers, each fold canonical (x_hi < q); one
+    chunk a fold is exact too; a table whose single chunk breaks the bound
+    raises."""
+    p = _port_params("k20")
+    qs = [int(q) for q in p.q_primes[:20]] + \
+        [int(v) for v in p.special_primes[:4]]
+    A, M, n = 160, len(qs), 64
+    rng = np.random.default_rng(4)
+    conv = rng.integers(0, 1 << 62, (A, M)) % np.asarray(qs)
+    pin = [(1 << 31) - 1] * A
+    afrag, group = ks_legs.chunked_tables(conv, qs, pin)
+    assert afrag.shape[0] == 20 and 1 < group < 20
+    y = ks_legs.byte_extremes(pin, [1] * A, rng.integers(1, 3, (A, n)))
+    want = (y.astype(object).T @ conv.astype(object)).T % \
+        np.asarray(qs, dtype=object)[:, None]
+    fold = torch.as_tensor(ks_legs.fold_table(qs))
+    for g in (group, 1):
+        peaks = {}
+        got = ks_legs.convert_digits_model(
+            torch.as_tensor(y)[None], torch.as_tensor(afrag), fold,
+            group=g, peaks=peaks)[0]
+        assert torch.equal(got, torch.as_tensor(want.astype(np.int64)))
+        assert peaks["xq"] < 0 and max(peaks["L"], peaks["H"]) < 1 << 32
+    with pytest.raises(ValueError, match="32-bit fold"):
+        ks_legs.fold_group(np.full((1, 4, 16), 1 << 31), [(1 << 30) + 3])
 
 
 def test_lazy_sums_reduce_by_the_primes_bound():
