@@ -30,6 +30,7 @@ Encoded diagonal stacks are kept on the device in the BootstrapKey's
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict
@@ -37,7 +38,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, trace
 from .core import ks_inner as ks_inner_mod
 from .core import ops_impl
 from .core.ciphertext import Ciphertext, Plaintext
@@ -581,32 +582,68 @@ def _eval_mod(engine, u_raw: Ciphertext, bk: BootstrapKey, rlk, q0: int,
 
 
 class _PhaseTimer:
-    """Per-phase wall time, exit level and op counts of one bootstrap, into
-    `phases` when the caller passes a list: each mark waits for the device,
-    so it perturbs the run and is for profiling only."""
+    """The time of a bootstrap's three phases, added to the engine's
+    counters `boot.cts_ns` (ModRaise through the conjugation split),
+    `boot.evalmod_ns` and `boot.stc_ns` while a profiler records
+    (`trace.on()`).  On the card each phase boundary records a timing event
+    on the current stream; a `capture` timer's events are external, so
+    under a graph capture they become event nodes of the graph and every
+    replay times its own phases (the start is recorded before the replay).
+    On the CPU, which runs synchronously, the marks take the host clock.
+    Nothing waits for the card until `add`, which a capture never calls."""
 
-    def __init__(self, engine, phases: list | None):
-        self.phases = phases
-        if phases is not None:
-            self._eng = engine
-            self._snap = dict(engine.counters)
-            self._t0 = time.perf_counter()
+    PHASES = ("cts", "evalmod", "stc")
 
-    def mark(self, name: str, ct: Ciphertext):
-        if self.phases is None:
+    def __init__(self, engine, data: torch.Tensor, capture: bool = False):
+        self.engine = engine
+        self.cuda = data.is_cuda
+        self.on = capture or (trace.on() and not (
+            self.cuda and torch.cuda.is_current_stream_capturing()))
+        self.stamps: list = [None] * (len(self.PHASES) + 1)
+        if self.on and self.cuda:
+            self.stamps = [torch.cuda.Event(enable_timing=True,
+                                            external=capture)
+                           for _ in self.stamps]
+            if capture:
+                # the CUDA events exist once recorded: create them before
+                # the capture, which then records them as graph nodes
+                for e in self.stamps[1:]:
+                    e.record()
+
+    def _stamp(self, i: int):
+        if not self.on:
             return
-        if ct.data.is_cuda:
-            torch.cuda.synchronize(ct.data.device)
-        now = time.perf_counter()
-        cur = dict(self._eng.counters)
-        delta = {k: cur[k] - self._snap[k] for k in cur
-                 if cur[k] != self._snap[k]}
-        self.phases.append((name, now - self._t0, ct.level, delta))
-        self._snap, self._t0 = cur, now
+        if self.cuda:
+            self.stamps[i].record()
+        else:
+            self.stamps[i] = time.perf_counter_ns()
+
+    def start(self):
+        self._stamp(0)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """The phase's span, then its end's mark."""
+        with trace.span("ckks.boot." + name):
+            yield
+        self._stamp(self.PHASES.index(name) + 1)
+
+    def add(self):
+        """Wait for the last mark and add each phase's nanoseconds."""
+        if not self.on:
+            return
+        st = self.stamps
+        if self.cuda:
+            st[-1].synchronize()
+            ns = [round(a.elapsed_time(b) * 1e6) for a, b in zip(st, st[1:])]
+        else:
+            ns = [b - a for a, b in zip(st, st[1:])]
+        for name, v in zip(self.PHASES, ns):
+            self.engine.counters[f"boot.{name}_ns"] += v
 
 
 def _boot_front(engine, ct: Ciphertext, raised: Ciphertext, conj_key,
-                bk: BootstrapKey, pt: _PhaseTimer) -> tuple:
+                bk: BootstrapKey) -> tuple:
     """Prescale + CoeffToSlot + conjugation half-split.  `ct` gives the
     input scale (for eval_mod_scales), `raised` is its ModRaise.  Returns
     the two real coefficient-half ciphertexts EvalMod consumes."""
@@ -621,26 +658,22 @@ def _boot_front(engine, ct: Ciphertext, raised: Ciphertext, conj_key,
         # encode lifts Delta -> hi_scale at no level
         yp = _apply_group(engine, raised, plans[0], "fcts0lift", bk,
                           scalar=a_scale * f, hi=True)
-        pt.mark("cts0", yp)
         for i, plan in enumerate(plans[1:-1], 1):
             yp = _apply_group(engine, yp, plan, f"fcts{i}", bk, hi=True)
-            pt.mark(f"cts{i}", yp)
     else:
         yp = engine.multiply(raised, a_scale * f)
         yp = _apply_chain(engine, yp, plans[:-1], "fcts", bk)
     y_a = _apply_group(engine, yp, plans[-1], f"fctsA{f:g}", bk,
                        scalar=1.0 / f, hi=hi)
-    pt.mark("ctsLast", y_a)
     # y_b = -i * y_a: one exact zeta4 multiply instead of a second group
     y_b = engine.negate(engine.multiply_i(y_a))
     ct_a = engine.add(y_a, engine.conjugate(y_a, conj_key))
     ct_b = engine.add(y_b, engine.conjugate(y_b, conj_key))
-    pt.mark("conj_split", ct_b)
     return ct_a, ct_b
 
 
 def _boot_back(engine, m_a: Ciphertext, m_b: Ciphertext, bk: BootstrapKey,
-               in_scale: float, pt: _PhaseTimer) -> Ciphertext:
+               in_scale: float) -> Ciphertext:
     """Half-recombine + SlotToCoeff."""
     params = engine.params
     if bk.hi_prec:
@@ -649,57 +682,66 @@ def _boot_back(engine, m_a: Ciphertext, m_b: Ciphertext, bk: BootstrapKey,
         # fm and the hi -> Delta pair drop fold into SlotToCoeff group 0
         v = _apply_group(engine, v, bk.stc_plan[0], "fstc0drop", bk,
                          scalar=fm, hi=True, out_scale=params.scale)
-        pt.mark("stc0", v)
-        out = _apply_chain(engine, v, bk.stc_plan[1:], "fstc1on", bk)
-        pt.mark("stc_rest", out)
-        return out
-    out = _apply_chain(engine, engine.add(m_a, m_b), bk.stc_plan, "fstc", bk)
-    pt.mark("stc", out)
-    return out
+        return _apply_chain(engine, v, bk.stc_plan[1:], "fstc1on", bk)
+    return _apply_chain(engine, engine.add(m_a, m_b), bk.stc_plan, "fstc",
+                        bk)
 
 
 def bootstrap(engine, ct: Ciphertext, relin_key, conj_key,
-              bootstrap_key: BootstrapKey,
-              phases: list | None = None) -> Ciphertext:
-    """Refresh `ct` (any level; only its bottom prime is read).  A list in
-    `phases` receives (phase, seconds, exit level, counter deltas) per
-    phase."""
+              bootstrap_key: BootstrapKey) -> Ciphertext:
+    """Refresh `ct` (any level; only its bottom prime is read).  While a
+    profiler records, the phases' times go to the engine's `boot.*_ns`
+    counters (`_PhaseTimer`)."""
+    with trace.span("ckks.boot"):
+        pt = _PhaseTimer(engine, ct.data)
+        pt.start()
+        out = _bootstrap(engine, ct, relin_key, conj_key, bootstrap_key, pt)
+        pt.add()
+    return out
+
+
+def _bootstrap(engine, ct: Ciphertext, relin_key, conj_key,
+               bootstrap_key: BootstrapKey, pt: _PhaseTimer) -> Ciphertext:
+    """The bootstrap's three phases, each marked on `pt`."""
     if bootstrap_key is None or bootstrap_key.rot is None:
         raise NotImplementedError(
             "bootstrap keys missing: create them with "
             "engine.create_bootstrap_key(sk) on a bootstrappable profile")
     params = engine.params
     engine._count("bootstrap")
-    pt = _PhaseTimer(engine, phases)
     q0 = int(params.q_primes[0])
-    raised = _mod_raise(engine, ct)
-    pt.mark("mod_raise", raised)
     if bootstrap_key.factored:
-        ct_a, ct_b = _boot_front(engine, ct, raised, conj_key, bootstrap_key,
-                                 pt)
-        m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0, ct.scale)
-        pt.mark("evalmod_a", m_a)
-        # the *i of the half-recombine folds into EvalMod's final constant
-        # (an exact zeta4 multiply in _boot_back when hi)
-        m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale,
-                        final_mult=1j)
-        pt.mark("evalmod_b", m_b)
-        return _boot_back(engine, m_a, m_b, bootstrap_key, ct.scale, pt)
+        with pt.phase("cts"):
+            raised = _mod_raise(engine, ct)
+            ct_a, ct_b = _boot_front(engine, ct, raised, conj_key,
+                                     bootstrap_key)
+        with pt.phase("evalmod"):
+            m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0,
+                            ct.scale)
+            # the *i of the half-recombine folds into EvalMod's final
+            # constant (an exact zeta4 multiply in _boot_back when hi)
+            m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0,
+                            ct.scale, final_mult=1j)
+        with pt.phase("stc"):
+            return _boot_back(engine, m_a, m_b, bootstrap_key, ct.scale)
     # dense: two maps per direction over the closed-form diagonals
     half = params.slot_count
-    a_scale, _, _ = eval_mod_scales(bootstrap_key, q0, ct.scale)
-    raised = engine.multiply(raised, a_scale)
-    f_a, f_b = _cts_diag(params, half)
-    w_a = _apply_linear_map(engine, raised, f_a, "cts_a", bootstrap_key)
-    w_b = _apply_linear_map(engine, raised, f_b, "cts_b", bootstrap_key)
-    ct_a = engine.add(w_a, engine.conjugate(w_a, conj_key))
-    ct_b = engine.add(w_b, engine.conjugate(w_b, conj_key))
-    m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0, ct.scale)
-    m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale)
-    e_a, e_b = _stc_diag(params, half)
-    return engine.add(
-        _apply_linear_map(engine, m_a, e_a, "stc_a", bootstrap_key),
-        _apply_linear_map(engine, m_b, e_b, "stc_b", bootstrap_key))
+    with pt.phase("cts"):
+        a_scale, _, _ = eval_mod_scales(bootstrap_key, q0, ct.scale)
+        raised = engine.multiply(_mod_raise(engine, ct), a_scale)
+        f_a, f_b = _cts_diag(params, half)
+        w_a = _apply_linear_map(engine, raised, f_a, "cts_a", bootstrap_key)
+        w_b = _apply_linear_map(engine, raised, f_b, "cts_b", bootstrap_key)
+        ct_a = engine.add(w_a, engine.conjugate(w_a, conj_key))
+        ct_b = engine.add(w_b, engine.conjugate(w_b, conj_key))
+    with pt.phase("evalmod"):
+        m_a = _eval_mod(engine, ct_a, bootstrap_key, relin_key, q0, ct.scale)
+        m_b = _eval_mod(engine, ct_b, bootstrap_key, relin_key, q0, ct.scale)
+    with pt.phase("stc"):
+        e_a, e_b = _stc_diag(params, half)
+        return engine.add(
+            _apply_linear_map(engine, m_a, e_a, "stc_a", bootstrap_key),
+            _apply_linear_map(engine, m_b, e_b, "stc_b", bootstrap_key))
 
 
 class FusedBootstrap:
@@ -719,7 +761,9 @@ class FusedBootstrap:
     would upload, or that grows any cache, raises: nothing falls back to
     the eager path.  The engine counters and the kernels' launch counts
     tick once during the capture, when nothing runs; they are put back,
-    and every replay adds the capture's deltas.  The instance
+    and every replay adds the capture's deltas.  The graph holds the phase
+    timer's three event nodes (`_PhaseTimer`), read after a replay while a
+    profiler records.  The instance
     holds every tensor the graph reads, since a graph keeps raw pointers.
 
     On the CPU nothing is captured: __call__ runs the eager bootstrap at the
@@ -784,12 +828,16 @@ class FusedBootstrap:
         before = self._tally()
         t0 = time.perf_counter()
         self._static_in = sample_ct.data.clone()
+        self._timer = _PhaseTimer(self.engine, self._static_in, capture=True)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             # entering the capture empties the allocator's cache, so the
             # pool's size is the growth from here
             reserved = torch.cuda.memory_reserved(dev)
-            out = self._run(self._static_in)
+            out = _bootstrap(self.engine,
+                             Ciphertext(self._static_in, self.in_scale),
+                             self.relin_key, self.conj_key, self.bk,
+                             self._timer)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -831,7 +879,13 @@ class FusedBootstrap:
                              f"{tuple(self._static_in.shape)}, got "
                              f"{tuple(ct.data.shape)}")
         self._static_in.copy_(ct.data)
-        self.graph.replay()
+        with trace.span("ckks.boot"):
+            timed = trace.on()
+            if timed:
+                self._timer.start()
+            self.graph.replay()
+            if timed:
+                self._timer.add()
         self._add(self.deltas)
         # the next replay overwrites the static output
         return Ciphertext(self._static_out.clone(), self.out_scale)

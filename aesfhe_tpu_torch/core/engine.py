@@ -109,9 +109,12 @@ class Engine:
         self.device = resolve_device(device)
         self.rng = keys_mod.default_rng() if rng is None else rng
         self.tabs = ops_impl.DeviceTables(params, self.device)
+        # the bootstrap's phase times in ns, added while a profiler
+        # records (bootstrap._PhaseTimer)
         self.counters = {k: 0 for k in
                          ("ct_mul", "pt_mul", "scalar_mul", "add", "rescale",
-                          "keyswitch", "rotate", "conjugate", "bootstrap")}
+                          "keyswitch", "rotate", "conjugate", "bootstrap",
+                          "boot.cts_ns", "boot.evalmod_ns", "boot.stc_ns")}
         self._perm_cache: dict[int, torch.Tensor] = {}
         self._trivial_cache: dict = {}
         self._consts_cache: dict = {}
@@ -870,8 +873,6 @@ class Engine:
 
     # ----- bootstrap (delegated) --------------------------------------
     def bootstrap(self, ct: Ciphertext, relin_key: SwitchKey,
-                  conj_key: SwitchKey, bootstrap_key,
-                  phases: list | None = None) -> Ciphertext:
+                  conj_key: SwitchKey, bootstrap_key) -> Ciphertext:
         from .. import bootstrap as _bs
-        return _bs.bootstrap(self, ct, relin_key, conj_key, bootstrap_key,
-                             phases=phases)
+        return _bs.bootstrap(self, ct, relin_key, conj_key, bootstrap_key)

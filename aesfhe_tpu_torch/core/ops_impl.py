@@ -10,8 +10,8 @@ DeviceTables of one (params, device).  The digit inner product of every
 key-switch goes through `ks_inner.ks_inner`, its basis conversions and the
 epilogue of the mod-down and of the rescales through `ks_legs` (the CUDA
 kernels on the card).  The functions the reference names with
-`jax.named_scope("ckks.…")` run inside `torch.profiler.record_function`
-ranges of the same names (`scopes.install`, at the end of this module), so
+`jax.named_scope("ckks.…")`, and the elementwise ops it leaves unnamed,
+run inside profiler spans (`trace.install`, at the end of this module), so
 a profile splits device time by primitive.
 """
 from __future__ import annotations
@@ -21,8 +21,9 @@ import sys
 import numpy as np
 import torch
 
+from .. import trace
 from . import ks_inner as ks_inner_mod
-from . import ks_legs, ntt, rns, scopes
+from . import ks_legs, ntt, rns
 from .params import CKKSParams
 
 
@@ -510,4 +511,4 @@ def _mod_down_specials_exact(params, tabs, x, level: int):
     return cur
 
 
-scopes.install(sys.modules[__name__])
+trace.install(sys.modules[__name__])

@@ -130,16 +130,13 @@ class EngineWrapper:
     def rotate(self, ct, steps: int):
         return self.engine.rotate(ct, self.rot_key, steps)
 
-    def bootstrap(self, ct, phases: list | None = None):
+    def bootstrap(self, ct):
         """Refresh `ct` with the context's bootstrap key: a replay of the
-        fused bootstrap when the config asks for it, else the eager path
-        (the only one the phase timer of `phases` can time)."""
+        fused bootstrap when the config asks for it, else the eager path."""
         if self.fused_boot:
-            if phases is not None:
-                raise ValueError("the phase timer needs the eager bootstrap")
             return self._bootstrap_fused(ct)
         return self.engine.bootstrap(ct, self.relin_key, self.conj_key,
-                                     self.boot_key, phases=phases)
+                                     self.boot_key)
 
     def _bootstrap_fused(self, ct):
         """Drop to level 0 first (ModRaise reads only the bottom prime), so

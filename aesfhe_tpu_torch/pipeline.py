@@ -13,6 +13,10 @@ Two pipelines:
 
 One ciphertext (pair) packs slot_count/16 blocks, column-major per 16-slot
 block (2048 blocks at N=2^16).
+
+Under a profiler each round is a `ckks.aes.round` span around its stages'
+spans (`trace.py`): `ckks.aes.ark`, `ckks.aes.sub_bytes`,
+`ckks.aes.shift_mix` and `ckks.aes.refresh`.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from . import trace
 from .coeffs import generate as coeffgen
 from .core.ciphertext import Ciphertext
 from .keyexp import expand_key_128
@@ -159,11 +164,13 @@ class AESFHE128:
 
         def one(ct):
             if ct.level < need * r + 2:
-                ct = self.refresh(ct)
-                for _ in range(self.post_boot_cleanses):
-                    ct = self.xor.cleanse(ct)
+                with trace.span("ckks.aes.refresh"):
+                    ct = self.refresh(ct)
+                    for _ in range(self.post_boot_cleanses):
+                        ct = self.xor.cleanse(ct)
             elif self.segment_refresh and ct.level >= (need + 6) * r + 2:
-                ct = self.xor.cleanse(ct)
+                with trace.span("ckks.aes.refresh"):
+                    ct = self.xor.cleanse(ct)
             return ct
 
         return NibblePair(one(pair.hi), one(pair.lo))
@@ -196,28 +203,34 @@ class AESFHE128:
         is refreshed first when a nibble has no level left, where the
         reference raises "out of levels"."""
         seg = self.segment_refresh
-        pair = self.add_round_key(self._cleanse_input(pair), 0)
+        with trace.span("ckks.aes.ark"):
+            pair = self.add_round_key(self._cleanse_input(pair), 0)
         for r in range(1, rounds + 1):
-            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
-                                 else self.SUB_DEPTH)
-            # in segment mode the refresh's cleanses replace the
-            # post-SubBytes cleanse (11 levels would not fit the budget)
-            pair = self.sub_bytes(pair, cleanse=not seg)
-            if r == 10:
-                if seg and min(pair.hi.level, pair.lo.level) == 0:
-                    # the reference refreshes nothing here, and a
-                    # segment's SubBytes ends at level 0 on prod_boot's
-                    # chain: its ShiftRows (one mask product) would run
-                    # out of levels
-                    pair = self._refresh(pair, 0)
-                pair = self.shift_rows(pair)
-            else:
-                if not seg:
-                    pair = self._refresh(pair, self.MIX_DEPTH)
-                pair = self.shift_mix(pair)
-            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
-                                 else self.ARK_DEPTH)
-            pair = self.add_round_key(pair, r)
+            with trace.span("ckks.aes.round"):
+                pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                     else self.SUB_DEPTH)
+                # in segment mode the refresh's cleanses replace the
+                # post-SubBytes cleanse (11 levels would not fit the budget)
+                with trace.span("ckks.aes.sub_bytes"):
+                    pair = self.sub_bytes(pair, cleanse=not seg)
+                if r == 10:
+                    if seg and min(pair.hi.level, pair.lo.level) == 0:
+                        # the reference refreshes nothing here, and a
+                        # segment's SubBytes ends at level 0 on prod_boot's
+                        # chain: its ShiftRows (one mask product) would run
+                        # out of levels
+                        pair = self._refresh(pair, 0)
+                    with trace.span("ckks.aes.shift_mix"):
+                        pair = self.shift_rows(pair)
+                else:
+                    if not seg:
+                        pair = self._refresh(pair, self.MIX_DEPTH)
+                    with trace.span("ckks.aes.shift_mix"):
+                        pair = self.shift_mix(pair)
+                pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                     else self.ARK_DEPTH)
+                with trace.span("ckks.aes.ark"):
+                    pair = self.add_round_key(pair, r)
         return pair
 
     def decrypt_rounds(self, pair: NibblePair, rounds: int = 10) -> NibblePair:
@@ -234,24 +247,30 @@ class AESFHE128:
         In segment mode the refreshes go between the stages as
         encrypt_rounds places them."""
         seg = self.segment_refresh
-        pair = self._cleanse_input(pair)
+        with trace.span("ckks.aes.ark"):
+            pair = self._cleanse_input(pair)
         for r in range(rounds, 0, -1):
-            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg else
-                                 self.ARK_DEPTH + self.CLEANSE_DEPTH
-                                 + self.MIX_DEPTH)
-            pair = self.add_round_key(pair, r)
-            if not seg:
-                pair = self.cleanse_pair(pair)
-            if r == 10:
-                pair = self.shift_rows(pair, inverse=True)
-            else:
-                pair = self.shift_mix(pair, inverse=True)
-            pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
-                                 else self.SUB_DEPTH - self.CLEANSE_DEPTH)
-            pair = self.sub_bytes(pair, inverse=True, cleanse=False)
+            with trace.span("ckks.aes.round"):
+                pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg else
+                                     self.ARK_DEPTH + self.CLEANSE_DEPTH
+                                     + self.MIX_DEPTH)
+                with trace.span("ckks.aes.ark"):
+                    pair = self.add_round_key(pair, r)
+                with trace.span("ckks.aes.shift_mix"):
+                    if not seg:
+                        pair = self.cleanse_pair(pair)
+                    if r == 10:
+                        pair = self.shift_rows(pair, inverse=True)
+                    else:
+                        pair = self.shift_mix(pair, inverse=True)
+                pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
+                                     else self.SUB_DEPTH - self.CLEANSE_DEPTH)
+                with trace.span("ckks.aes.sub_bytes"):
+                    pair = self.sub_bytes(pair, inverse=True, cleanse=False)
         pair = self._refresh(pair, self.SEG_STAGE_DEPTH if seg
                              else self.ARK_DEPTH)
-        return self.add_round_key(pair, 0)
+        with trace.span("ckks.aes.ark"):
+            return self.add_round_key(pair, 0)
 
     def encrypt_bytes(self, data: bytes, rounds: int = 10) -> bytes:
         """Host bytes in, homomorphically AES-encrypted host bytes out."""
@@ -287,14 +306,15 @@ class AESFHE128Bitsliced:
         need = need_levels * eng.params.rescale_primes + 2
         if min(b.level for b in st.bits) >= need:
             return st
-        out = [None] * len(st.bits)
-        for p in range(0, len(st.bits), 2):
-            packed = eng.add(st.bits[p], eng.multiply_i(st.bits[p + 1]))
-            z = self.refresh(packed)
-            zc = eng.conjugate(z, self.eng.conj_key)
-            out[p] = eng.linear_combination([z, zc], [0.5, 0.5])
-            out[p + 1] = eng.linear_combination([z, zc], [-0.5j, 0.5j])
-        return self.svc.cleanse(BitState(out))
+        with trace.span("ckks.aes.refresh"):
+            out = [None] * len(st.bits)
+            for p in range(0, len(st.bits), 2):
+                packed = eng.add(st.bits[p], eng.multiply_i(st.bits[p + 1]))
+                z = self.refresh(packed)
+                zc = eng.conjugate(z, self.eng.conj_key)
+                out[p] = eng.linear_combination([z, zc], [0.5, 0.5])
+                out[p + 1] = eng.linear_combination([z, zc], [-0.5j, 0.5j])
+            return self.svc.cleanse(BitState(out))
 
     def encrypt_rounds(self, st: BitState, rounds: int = 10,
                        checkpoint_dir: str | Path | None = None) -> BitState:
@@ -312,19 +332,22 @@ class AESFHE128Bitsliced:
             if done:
                 st, start = saved, done + 1
         for r in range(start, rounds + 1):
-            st = self._refresh(st, self.ROUND_DEPTH)
-            st = svc.xor_plain(st, self.round_keys[r - 1])
-            st = svc.sub_bytes(st)
-            if r == 10:
-                st = svc.shift_rows(st, fold_key=self.round_keys[10])
-            else:
-                st = svc.shift_rows(st)
-                st = svc.mix_columns(st)
-                st = svc.cleanse(st)
+            with trace.span("ckks.aes.round"):
+                st = self._refresh(st, self.ROUND_DEPTH)
+                with trace.span("ckks.aes.ark"):
+                    st = svc.xor_plain(st, self.round_keys[r - 1])
+                with trace.span("ckks.aes.sub_bytes"):
+                    st = svc.sub_bytes(st)
+                with trace.span("ckks.aes.shift_mix"):
+                    if r == 10:
+                        st = svc.shift_rows(st, fold_key=self.round_keys[10])
+                    else:
+                        st = svc.cleanse(svc.mix_columns(svc.shift_rows(st)))
             if checkpoint_dir:
                 self._save_checkpoint(checkpoint_dir, r, st)
         if rounds < 10:
-            st = svc.xor_plain(st, self.round_keys[rounds])
+            with trace.span("ckks.aes.ark"):
+                st = svc.xor_plain(st, self.round_keys[rounds])
         return st
 
     # -- per-round checkpoint / resume ------------------------------------
@@ -395,12 +418,15 @@ class AESFHE128Bitsliced:
         """Inverse cipher: undo rounds `rounds`..1, then ARK(rk0)."""
         svc = self.svc
         for r in range(rounds, 0, -1):
-            st = self._refresh(st, self.ROUND_DEPTH + 4)
-            st = svc.xor_plain(st, self.round_keys[r])
-            if r != 10:
-                st = svc.mix_columns(st, inverse=True)
-                st = svc.cleanse(st)
-            st = svc.shift_rows(st, inverse=True)
-            st = svc.sub_bytes(st, inverse=True)
-            st = svc.cleanse(st)
-        return svc.xor_plain(st, self.round_keys[0])
+            with trace.span("ckks.aes.round"):
+                st = self._refresh(st, self.ROUND_DEPTH + 4)
+                with trace.span("ckks.aes.ark"):
+                    st = svc.xor_plain(st, self.round_keys[r])
+                with trace.span("ckks.aes.shift_mix"):
+                    if r != 10:
+                        st = svc.cleanse(svc.mix_columns(st, inverse=True))
+                    st = svc.shift_rows(st, inverse=True)
+                with trace.span("ckks.aes.sub_bytes"):
+                    st = svc.cleanse(svc.sub_bytes(st, inverse=True))
+        with trace.span("ckks.aes.ark"):
+            return svc.xor_plain(st, self.round_keys[0])

@@ -15,13 +15,13 @@ rounds once untraced (warm-up) and once under torch.profiler.
 and its Galois keys shared into the round's set), one round from the work
 level ROUND_DEPTH + 1 to reach the state a refresh meets, one pair-packed
 refresh (4 bootstraps) untraced, which fills the diagonal cache, and a
-second one under torch.profiler; then one more bootstrap with the phase
-timer on (each phase waits for the card), for the seconds and exit level
-of each phase.  The refreshes run the eager bootstrap; with `--graph` the
-same warm refresh is traced twice, eager and with every bootstrap a replay
-of the fused bootstrap's CUDA graph (captured in its warm-up), each beside
-its untraced wall (CUDA events), so the device busy share of each shows
-what the graph takes off the host.
+second one under torch.profiler, with each bootstrap's phase times (the
+engine's `boot.*_ns` counters, `bootstrap._PhaseTimer`).  The refreshes
+run the eager bootstrap; with `--graph` the same warm refresh is traced
+twice, eager and with every bootstrap a replay of the fused bootstrap's
+CUDA graph (captured in its warm-up), each beside its untraced wall (CUDA
+events), so the device busy share of each shows what the graph takes off
+the host.
 
 `--zeta`: the nibble-pair pipeline (AESFHE128) with direct rotation keys
 for its merged ShiftRows+MixColumns, 2048 random blocks encrypted fresh,
@@ -34,11 +34,13 @@ under torch.profiler, after a warm-up step.
 Prints one JSON object: the traced wall time, the summed device kernel
 time and its share of the wall (the rest is the card idling on the host),
 each of the port's kernels' device seconds, launches and shares, the
-device time by the CKKS primitives' named ranges (`core/scopes.py`: the
-reference's jax.named_scope names; "self" without and "total" with the
-ranges nested inside, and the time outside every range), and the kernels
-that take the most device time (with `--graph` one such record each for
-"eager" and "graph"; a replay runs outside every range).
+device time by the port's named ranges (`trace.py`: the CKKS primitives
+under the reference's jax.named_scope names, the rounds' stages and the
+bootstrap's phases; "self" without and "total" with the ranges nested
+inside, and the time outside every range), with `--refresh` the
+bootstrap's phase times, and the kernels that take the most device time
+(with `--graph` one such record each for "eager" and "graph"; a replay's
+kernels run under its `ckks.boot` range alone).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -54,8 +56,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import kernels, run_full_aes, zeta_trace
-from .core import ops_impl, scopes
+from . import kernels, run_full_aes, trace, zeta_trace
+from .core import ops_impl
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
 from .pipeline import AESFHE128, AESFHE128Bitsliced
@@ -95,18 +97,9 @@ def _refresh_work(args):
     st = BitState([eng._drop(b, aes.ROUND_DEPTH + 1) for b in
                    aes.encrypt_state(state).bits])
     st = run_full_aes.run_round(aes, st, 1, 10)
-    phases: list = []
-    packed = eng.add(st.bits[0], eng.multiply_i(st.bits[1]))
-
-    def phase_run():
-        aes.eng.fused_boot = False
-        aes.eng.bootstrap(packed, phases=phases)
-        return [dict(phase=n, s=s, exit_level=lvl, ops=ops)
-                for n, s, lvl, ops in phases]
-
     return (lambda: aes._refresh(st, aes.ROUND_DEPTH),
             dict(refresh_input_level=st.level, bootstraps_traced=4,
-                 phase_run=phase_run, wrap=aes.eng))
+                 wrap=aes.eng))
 
 
 def _zeta_work(args):
@@ -129,10 +122,11 @@ def _bench_work(args):
             dict(bench=args.bench, logn=args.logn, blocks=leg.blocks))
 
 
-def _trace(work) -> dict:
+def _trace(work, eng=None) -> dict:
     """Warm-up, one untraced run (CUDA events) and one run under
     torch.profiler: walls, device kernel time and busy shares, the
-    key-switch kernel's launches and share, the top kernels."""
+    key-switch kernel's launches and share, the top kernels; with the
+    engine `eng`, the traced run's bootstrap phase times."""
     work()                                               # warm-up
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -143,6 +137,7 @@ def _trace(work) -> dict:
     torch.cuda.synchronize()
     untraced = ev0.elapsed_time(ev1) / 1e3
     kernels.zero_launches()
+    c0 = dict(eng.counters) if eng is not None else {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -150,6 +145,12 @@ def _trace(work) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    phases = None
+    if eng is not None:
+        boots = eng.counters["bootstrap"] - c0["bootstrap"]
+        # boot.<phase>_ns -> ms a bootstrap
+        phases = {k[5:-3]: (eng.counters[k] - c0[k]) / max(boots, 1) / 1e6
+                  for k in eng.counters if k.startswith("boot.")}
 
     by_name = {}
     for evt in prof.key_averages():
@@ -171,6 +172,7 @@ def _trace(work) -> dict:
                 kernel_share_of_device={k: v / device_s if device_s else None
                                         for k, v in port_s.items()},
                 scopes_s=scope_split(prof.events(), device_s),
+                bootstrap_phase_ms=phases,
                 top_kernels_s=[(k[:90], _body(k), v / 1e6) for k, v in top])
 
 
@@ -268,29 +270,27 @@ def main(argv=None) -> dict:
     # ops_impl installs its ranges itself; this also gives them to a copy
     # of the package from before they existed, profiled with this script
     # for a before/after comparison
-    scopes.install(ops_impl)
+    trace.install(ops_impl)
     if args.graph and not args.refresh:
         raise SystemExit("profile_round: --graph needs --refresh")
 
     work, desc = (_bench_work if args.bench else _zeta_work if args.zeta
                   else _refresh_work if args.refresh else _rounds_work)(args)
-    phase_run = desc.pop("phase_run", None)
     wrap = desc.pop("wrap", None)
+    eng = wrap.engine if wrap is not None else None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     out = dict(card=card, profile=args.profile, **desc)
     if args.graph:
-        out["eager"] = _trace(work)
+        out["eager"] = _trace(work, eng)
         wrap.fused_boot = True
-        out["graph"] = _trace(work)
+        out["graph"] = _trace(work, eng)
         out["graphs"] = [dict(capture_s=f.capture_s,
                               pool_gib=f.pool_bytes / 2 ** 30)
                          for f in wrap.fused_instances.values()]
     else:
-        out.update(_trace(work))
-    if phase_run is not None:
-        out["bootstrap_phases"] = phase_run()
+        out.update(_trace(work, eng))
     print(json.dumps(out))
     return out
 

@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, trace
 from .aes_tables import aes128_partial
 from .ops.bitplane import BitState
 from .ops.xor_service import EngineWrapper, XORConfig
@@ -83,18 +83,23 @@ def run_round(aes: AESFHE128Bitsliced, st: BitState, r: int,
     eng = aes.eng.engine
     svc = aes.svc
     work = aes.ROUND_DEPTH + 1
-    if r > 1:
-        st = aes._refresh(st, aes.ROUND_DEPTH)
-    if st.level > work:
-        st = BitState([eng._drop(b, work) for b in st.bits])
-    st = svc.xor_plain(st, aes.round_keys[r - 1])
-    st = svc.sub_bytes(st)
-    if r == 10:
-        return svc.shift_rows(st, fold_key=aes.round_keys[10])
-    st = svc.cleanse(svc.mix_columns(svc.shift_rows(st)))
-    if r == rounds:
-        st = svc.xor_plain(st, aes.round_keys[rounds])
-    return st
+    with trace.span("ckks.aes.round"):
+        if r > 1:
+            st = aes._refresh(st, aes.ROUND_DEPTH)
+        if st.level > work:
+            st = BitState([eng._drop(b, work) for b in st.bits])
+        with trace.span("ckks.aes.ark"):
+            st = svc.xor_plain(st, aes.round_keys[r - 1])
+        with trace.span("ckks.aes.sub_bytes"):
+            st = svc.sub_bytes(st)
+        with trace.span("ckks.aes.shift_mix"):
+            if r == 10:
+                return svc.shift_rows(st, fold_key=aes.round_keys[10])
+            st = svc.cleanse(svc.mix_columns(svc.shift_rows(st)))
+        if r == rounds:
+            with trace.span("ckks.aes.ark"):
+                st = svc.xor_plain(st, aes.round_keys[rounds])
+        return st
 
 
 def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,

@@ -142,7 +142,8 @@ def test_fused_cpu_equals_eager(wrap_a):
 def test_wrapper_fused_path_one_instance_across_levels(wrap_a):
     """EngineWrapper(fused_boot=True).bootstrap drops to level 0 first, so
     inputs at levels 3 and 5 of one scale share one instance, and both
-    equal the eager bootstrap."""
+    equal the eager bootstrap; it takes no phase list, and times its
+    phases into the engine's counters under a profiler."""
     w, eng = wrap_a.w, wrap_a.w.engine
     w.fused_instances.clear()
     ct5, msg5 = _packed(eng, w.public_key, seed=10, level=5)
@@ -154,8 +155,17 @@ def test_wrapper_fused_path_one_instance_across_levels(wrap_a):
     assert torch.equal(out3.data, wrap_a.eager.data)
     assert out3.scale == out5.scale == wrap_a.eager.scale
     assert np.max(np.abs(w.decrypt(out5) - msg5)) < 0.35
-    with pytest.raises(ValueError, match="eager"):
+    # the synchronising phase list is gone; the fused path, which it could
+    # not time, adds its phase times to the counters under a profiler
+    with pytest.raises(TypeError, match="phases"):
         w.bootstrap(wrap_a.ct, phases=[])
+    keys = [f"boot.{p}_ns" for p in tbs._PhaseTimer.PHASES]
+    before = [eng.counters[k] for k in keys]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = w.bootstrap(wrap_a.ct)
+    assert torch.equal(out.data, wrap_a.eager.data)
+    assert all(eng.counters[k] > b for k, b in zip(keys, before))
 
 
 def test_fused_signature_mismatch_raises(wrap_a):

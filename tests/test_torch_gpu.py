@@ -250,14 +250,9 @@ def test_bitplane_leg_at_2_18_exact():
     assert counts["ntt_cluster16"] > 0 and counts["ntt_two_pass"] == 0
 
 
-def test_fused_bootstrap_graph_equals_eager():
-    """tests/test_bootstrap.py's boot chain (n=2^9, 34 levels): the captured
-    graph's warm-up and two back-to-back replays on other inputs equal the
-    eager bootstrap bit for bit, each replay with its own output; every
-    replay counts the capture's key-switches and kernel launches (the NTT
-    kernels' too)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _boot_chain():
+    """tests/test_bootstrap.py's boot chain (n=2^9, 34 levels) on the card:
+    the engine, its bootstrap keys and three packed level-0 inputs."""
     params = CKKSParams(n=1 << 9, max_level=34, scale_bits=27,
                         first_prime_bits=30, num_special_primes=4,
                         secret_hamming=16)
@@ -273,6 +268,18 @@ def test_fused_bootstrap_graph_equals_eager():
         ins.append(eng.add(eng._drop(eng.encrypt(p0, ctx.public_key), 0),
                            eng.multiply_i(eng._drop(
                                eng.encrypt(p1, ctx.public_key), 0))))
+    return eng, keys, ins
+
+
+def test_fused_bootstrap_graph_equals_eager():
+    """On the boot chain the captured
+    graph's warm-up and two back-to-back replays on other inputs equal the
+    eager bootstrap bit for bit, each replay with its own output; every
+    replay counts the capture's key-switches and kernel launches (the NTT
+    kernels' too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng, keys, ins = _boot_chain()
     fb = FusedBootstrap(eng, *keys, ins[0])
     assert fb.graph is not None and fb.pool_bytes > 0
     assert fb.deltas["ks_inner_launches"] == fb.deltas["keyswitch"] > 0
@@ -291,6 +298,36 @@ def test_fused_bootstrap_graph_equals_eager():
         assert torch.equal(out.data, want.data)
         assert out.scale == want.scale == fb.out_scale
     assert not torch.equal(outs[0].data, outs[1].data)
+
+
+def test_profiled_replay_times_its_phases():
+    """A replay under the profiler adds the three `boot.*_ns` counters from
+    the graph's own event nodes, their sum within 10% of the replay's time
+    between CUDA events around the call; a replay without the profiler
+    adds none, and the capture left them out of the replay's deltas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng, keys, ins = _boot_chain()
+    fb = FusedBootstrap(eng, *keys, ins[0])
+    names = [f"boot.{p}_ns" for p in ("cts", "evalmod", "stc")]
+    assert not set(names) & set(fb.deltas)
+    before = [eng.counters[k] for k in names]
+    fb(ins[1])
+    torch.cuda.synchronize()
+    assert [eng.counters[k] for k in names] == before
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        e0.record()
+        out = fb(ins[1])
+        e1.record()
+        torch.cuda.synchronize()
+    got = [eng.counters[k] - b for k, b in zip(names, before)]
+    replay_ns = e0.elapsed_time(e1) * 1e6
+    assert all(v > 0 for v in got)
+    assert abs(sum(got) - replay_ns) <= 0.1 * replay_ns, (got, replay_ns)
+    assert torch.equal(out.data, eng.bootstrap(ins[1], *keys).data)
 
 
 @pytest.mark.parametrize("d", [2, 4])

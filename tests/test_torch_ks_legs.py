@@ -363,18 +363,19 @@ def test_modup_and_moddown_plain_match_python_integers():
 
 
 def test_named_ranges_and_their_split():
-    """The reference's 13 named scopes are the port's profiler ranges: a
+    """The reference's 13 named scopes and the port's three ranges of the
+    elementwise ops are the port's profiler ranges: a
     CPU trace of one tiny key-switch shows ckks.keyswitch around
     ckks.ks_decompose and ckks.ks_inner_moddown; profile_round's split
     counts each kernel under its innermost range (self) and under every
     range around it (total), the rest outside the ranges."""
     from types import SimpleNamespace as NS
 
-    from aesfhe_tpu_torch import profile_round
-    from aesfhe_tpu_torch.core import scopes
-    assert len(scopes.SCOPES) == 13
-    for fn, scope in scopes.SCOPES.items():
-        assert getattr(tops, fn).ckks_scope == scope
+    from aesfhe_tpu_torch import profile_round, trace
+    assert len(trace.SCOPES) == 16
+    for scope, fns in trace.SCOPES.items():
+        for fn in fns:
+            assert getattr(tops, fn).ckks_scope == scope
     _, tp, tabs = _pair("tiny")
     rng = np.random.default_rng(0)
     c = _t(_residues(tp, tops._rows(tp, 3, False), (), rng))
