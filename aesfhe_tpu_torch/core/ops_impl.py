@@ -8,8 +8,9 @@ it non-negative and `.long()` widens it.  Each function widens its inputs,
 computes in int64 (see core/rns.py) and returns int32.  `tabs` is the
 DeviceTables of one (params, device).  The digit inner product of every
 key-switch goes through `ks_inner.ks_inner`, its basis conversions and the
-epilogue of the mod-down and of the rescales through `ks_legs` (the CUDA
-kernels on the card).  The functions the reference names with
+epilogue of the mod-down and of the rescales through `ks_legs`, the LUT
+sums (`ct_linear_combo`, `ct_linear_combo_dense`) through `lut_sum` (the
+CUDA kernels on the card).  The functions the reference names with
 `jax.named_scope("ckks.…")`, and the elementwise ops it leaves unnamed,
 run inside profiler spans (`trace.install`, at the end of this module), so
 a profile splits device time by primitive.
@@ -23,7 +24,7 @@ import torch
 
 from .. import trace
 from . import ks_inner as ks_inner_mod
-from . import ks_legs, ntt, rns
+from . import ks_legs, lut_sum, ntt, rns
 from .params import CKKSParams
 
 
@@ -161,20 +162,11 @@ def ct_mul_dense_pt(params, tabs, a, pt):
                         tr.rinv.reshape(1, -1, 1)).int()
 
 
-def _scalar_terms(x, consts, q, neg):
-    """x * (re + s_i * imz) with s_i = -1 on xhalf_sign_neg slots; consts
-    columns (re_w, re_shoup, imz_w, imz_shoup), shaped to broadcast."""
-    t_re = rns.shoup_mul(x, consts[..., 0:1].long(), q)
-    t_im = rns.shoup_mul(x, consts[..., 2:3].long(), q)
-    return torch.where(neg, rns.sub_mod(t_re, t_im, q),
-                       rns.add_mod(t_re, t_im, q))
-
-
 def ct_mul_scalar_pt(params, tabs, a, consts):
     """ct x slot-constant complex plaintext; consts int32 [l+1, 4]."""
     q = _q_tr(params, tabs, a.shape[1] - 1).q.reshape(1, -1, 1)
-    return _scalar_terms(a.long(), consts[None], q,
-                         tabs.xhalf_sign_neg).int()
+    return lut_sum.scalar_terms(a.long(), consts[None], q,
+                                tabs.xhalf_sign_neg).int()
 
 
 def ct_add_scalar_pt(params, tabs, a, consts_mont):
@@ -193,27 +185,18 @@ def ct_add_scalar_pt(params, tabs, a, consts_mont):
 
 def ct_linear_combo(params, tabs, stack, consts):
     """sum_k stack[k] * scalar_pt(consts[k]); stack [K, deg+1, l+1, N],
-    consts [K, l+1, 4].  Returns [deg+1, l+1, N] (caller rescales)."""
-    q = _q_tr(params, tabs, stack.shape[2] - 1).q.reshape(1, -1, 1)
-    acc = None
-    for k in range(stack.shape[0]):
-        t = _scalar_terms(stack[k].long(), consts[k][None], q,
-                          tabs.xhalf_sign_neg)
-        acc = t if acc is None else rns.add_mod(acc, t, q)
-    return acc.int()
+    consts [K, l+1, 4].  Returns [deg+1, l+1, N] (caller rescales).  One
+    launch of the LUT-sum kernel on the card (lut_sum.lut_sum)."""
+    return lut_sum.lut_sum(stack, consts, tabs.xhalf_sign_neg,
+                           _q_tr(params, tabs, stack.shape[2] - 1))
 
 
 def ct_linear_combo_dense(params, tabs, stack, pts):
     """sum_k stack[k] * dense_pt[k]; stack [K, deg+1, l+1, N], pts
-    [K, l+1, N] Montgomery eval.  Returns [deg+1, l+1, N]."""
-    tr = _q_tr(params, tabs, stack.shape[2] - 1)
-    q = tr.q.reshape(1, -1, 1)
-    acc = None
-    for k in range(stack.shape[0]):
-        t = (stack[k].long() * pts[k].long()[None]) % q
-        acc = t if acc is None else acc + t
-    # sum_k mont_mul(x_k, p_k) = (sum_k x_k p_k mod q) * 2^-32 mod q
-    return ((acc % q) * tr.rinv.reshape(1, -1, 1) % q).int()
+    [K, l+1, N] Montgomery eval.  Returns [deg+1, l+1, N].  One launch of
+    the LUT-sum kernel on the card (lut_sum.lut_sum_dense)."""
+    return lut_sum.lut_sum_dense(stack, pts,
+                                 _q_tr(params, tabs, stack.shape[2] - 1))
 
 
 def ct_tensor_sum(params, tabs, a_stack, b_stack):

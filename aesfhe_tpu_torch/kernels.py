@@ -28,14 +28,17 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "build"
 SOURCES = {"ks_inner": _PKG / "csrc" / "ks_inner.cu",
            "ntt": _PKG / "csrc" / "ntt.cu",
-           "ks_legs": _PKG / "csrc" / "ks_legs.cu"}
+           "ks_legs": _PKG / "csrc" / "ks_legs.cu",
+           "lut_sum": _PKG / "csrc" / "lut_sum.cu"}
 # kernel name -> (wrapper module under core/, its launch counter)
 COUNTERS = {"ks_inner": ("ks_inner", "launches"),
             "ntt_fwd": ("ntt", "launches_fwd"),
             "ntt_inv": ("ntt", "launches_inv"),
             "ks_modup": ("ks_legs", "launches_modup"),
             "ks_moddown": ("ks_legs", "launches_moddown"),
-            "sub_scale": ("ks_legs", "launches_sub_scale")}
+            "sub_scale": ("ks_legs", "launches_sub_scale"),
+            "lut_sum": ("lut_sum", "launches_scalar"),
+            "lut_sum_dense": ("lut_sum", "launches_dense")}
 # of those launches, the instances that only some parameter sets reach (the
 # chunked conversions: a digit or special set of more than 8 primes; the
 # NTT on a cluster of 16: rings of 2^18, one launch a transform; the

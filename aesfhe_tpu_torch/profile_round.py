@@ -178,8 +178,8 @@ def _trace(work, eng=None) -> dict:
 
 # the port's kernels by their demangled or mangled names: csrc/ntt.cu's
 # ntt_cluster<forward?, ...>, ntt_cluster16, ntt_block and the two-pass
-# ntt_cols/ntt_runs (also apart: the rings from 2^18), ks_inner.cu's and
-# ks_legs.cu's kernels
+# ntt_cols/ntt_runs (also apart: the rings from 2^18), ks_inner.cu's,
+# ks_legs.cu's and lut_sum.cu's kernels
 PORT_KERNELS = {"ks_inner": "ks_inner_kernel",
                 "ntt_fwd": "ntt_(cluster16|cluster|block|cols|runs)"
                            "(<true|ILb1)",
@@ -189,7 +189,9 @@ PORT_KERNELS = {"ks_inner": "ks_inner_kernel",
                 "ntt_two_pass": "ntt_(cols|runs)",
                 "ks_modup": "ks_modup_kernel",
                 "ks_moddown": "ks_moddown_kernel",
-                "sub_scale": "sub_scale_kernel"}
+                "sub_scale": "sub_scale_kernel",
+                "lut_sum": "lut_sum_scalar",
+                "lut_sum_dense": "lut_sum_dense"}
 
 
 def _is_range(name: str) -> bool:

@@ -36,7 +36,9 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      the chunked instances, their ptxas lines and resident blocks an SM)
      and over the chain of primes below 2^16 (SMALL_PRIMES' tables, 2^16
      columns), at the top and a middle level, on random, byte-extreme and
-     (mod-down) half-integer inputs;
+     (mod-down) half-integer inputs; the LUT sums (lut_sum, lut_sum_dense)
+     at EvalMod's K = 7 terms of [2, 42, 2^16], the rounds' K = 16 of
+     [2, 16] and CoeffToSlot's first group, K = 8 of [2, 55];
   3b. key-switch phase: one relinearization (of a product, rescaled) and
      one rotation at each of WIDE_SETS (N=2^16) and SMALL_PRIMES (N=2^10,
      the largest ring its primes exist for), from seeded keys, decrypted
@@ -117,12 +119,14 @@ csrc/ks_legs.cu, and times its conversions beside this tree's in turns,
      other path.
 Every main path (slice, bench legs, flagship with its graph replays, each
 fused replay, zeta legs, every mesh rank) zeroes the launch counts just
-before it and prints every kernel's launches, which must all be > 0, with
+before it and prints every kernel's launches, which must all be > 0 (the
+key-switch checks of phases 3b and 10b run no LUT sum), with
 one ks_moddown launch per ks_inner launch (one mod-down per key-switch),
 and none of an instance of kernels.VARIANTS off its own paths (prod_boot's
 digits and special set have 8 primes, its ring 2^16).  The line before the
 last is a JSON object with one entry per kernel (ks_inner, ntt_fwd,
-ntt_inv, ks_modup, ks_moddown, sub_scale; launches summed over the slice,
+ntt_inv, ks_modup, ks_moddown, sub_scale, lut_sum, lut_sum_dense;
+launches summed over the slice,
 the bench legs, the large-ring legs, the flagship, the zeta legs and every
 rank of the mesh phase) and per instance (ks_modup_chunks,
 ks_moddown_chunks: launches of the key-switch phase 3b; ntt_cluster16,
@@ -147,7 +151,8 @@ import torch
 from aesfhe_tpu_torch import (bench, bootstrap, kernels, legs_variants,
                               run_full_aes, zeta_trace)
 from aesfhe_tpu_torch.aes_tables import aes128_partial
-from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
+from aesfhe_tpu_torch.core import (ks_inner, ks_legs, lut_sum, ntt, ops_impl,
+                                   rns)
 from aesfhe_tpu_torch.core.ciphertext import Ciphertext
 from aesfhe_tpu_torch.core.engine import Engine
 from aesfhe_tpu_torch.core.params import CKKSParams, get_params
@@ -242,8 +247,14 @@ zero_launches = kernels.zero_launches      # just before a main path runs
 read_launches = kernels.launch_counts
 
 
-def check_launches(where: str, counts: dict, instances=(), variants=None):
-    """Print a main path's kernel launches: every kernel must have run, and
+# the LUT sums, which a path of key-switches alone does not run
+NO_LUT_SUMS = ("lut_sum", "lut_sum_dense")
+
+
+def check_launches(where: str, counts: dict, instances=(), variants=None,
+                   absent=()):
+    """Print a main path's kernel launches: every kernel must have run but
+    those the path need not reach (`absent`: NO_LUT_SUMS), and
     the mod-down once per key-switch, as the inner product; the instances
     of kernels.VARIANTS (`variants`, read with `counts`; by default this
     process's counts now: the chunked conversions, the 16-block and the
@@ -252,8 +263,8 @@ def check_launches(where: str, counts: dict, instances=(), variants=None):
         variants = kernels.variant_counts()
     print(f"{where}: kernel launches {counts}, instances {variants}",
           flush=True)
-    if any(v <= 0 for v in counts.values()) or set(counts) != \
-            set(kernels.COUNTERS):
+    if any(v <= 0 for k, v in counts.items() if k not in absent) or \
+            set(counts) != set(kernels.COUNTERS):
         raise AssertionError(f"{where}: not every kernel was launched: "
                              f"{counts}")
     if counts["ks_moddown"] != counts["ks_inner"]:
@@ -807,6 +818,50 @@ def ks_legs_cases(params, rng, dev) -> list:
 _WIDE: dict = {}
 
 
+def lut_sum_cases(params, rng, dev) -> list:
+    """Both LUT-sum kernels (csrc/lut_sum.cu) against their plain versions
+    at the main path's shapes, timed as legs_case times the legs: the
+    scalar sum at EvalMod's Paterson-Stockmeyer leaves (K = 7 terms of
+    [2, 42, 2^16]) and at the flagship rounds' work level (K = 16, [2, 16]),
+    the dense sum at CoeffToSlot's first group (K = 8 at the top level,
+    [2, 55], its plaintext stack [8, 55]).  A term costs 3 32-bit multiplies
+    a word (Shoup) or 4 (REDC)."""
+    tabs = ops_impl.DeviceTables(params, dev)
+    N = params.n
+    out = []
+    for name, K, D, L in (("lut_sum", 7, 2, 42), ("lut_sum", 16, 2, 16),
+                          ("lut_sum_dense", 8, 2, params.top_level + 1)):
+        tr = tabs.rows(range(L))
+        qs = np.asarray(params.q_primes[:L], dtype=np.int64)[:, None]
+
+        def residues(lead):
+            return rns.narrow(torch.as_tensor(
+                rng.integers(0, 1 << 62, (*lead, L, N)) % qs, device=dev))
+
+        x = residues((K, D))
+        dense = name == "lut_sum_dense"
+        if dense:
+            pts = residues((K,))
+            run = lambda: lut_sum.lut_sum_dense(x, pts, tr)
+            plain = lambda: lut_sum.lut_sum_dense_plain(x, pts, tr.q,
+                                                        tr.rinv)
+        else:
+            w = rng.integers(0, 1 << 62, (K, L, 2)) % qs
+            sh = np.vectorize(rns.shoup_precompute)(w, qs[None])
+            consts = rns.narrow(torch.as_tensor(np.stack(
+                [w[..., 0], sh[..., 0], w[..., 1], sh[..., 1]], -1),
+                device=dev))
+            run = lambda: lut_sum.lut_sum(x, consts, tabs.xhalf_sign_neg, tr)
+            plain = lambda: lut_sum.lut_sum_plain(x, consts,
+                                                  tabs.xhalf_sign_neg, tr.q)
+        out.append(legs_case(
+            name, f"K={K} [{D}, {L}, 2^{N.bit_length() - 1}]", run, plain,
+            (lut_sum.bytes_moved(K, D, L, N, dense),
+             K * D * L * N * (4 if dense else 3))))
+    torch.cuda.empty_cache()
+    return out
+
+
 def wide_params(name: str) -> CKKSParams:
     """WIDE_SETS[name] or ("scale 2^14") SMALL_PRIMES, built once."""
     if name not in _WIDE:
@@ -849,7 +904,7 @@ def keyswitch_check(name: str, p: CKKSParams, decodes: bool = True):
     counts = read_launches()
     chunked = kernels.variant_counts()
     check_launches(f"key-switch {name}", counts, tuple(kernels.VARIANTS),
-                   chunked)
+                   chunked, absent=NO_LUT_SUMS)
     want = {"ks_modup_chunks": sum(
                 ks_legs.ModupTables(p, lvl, "cpu").nch > 1
                 for lvl in (sq.level, ct.level)),
@@ -1487,6 +1542,18 @@ def finish(card: str, cases: list, top: dict, ntt_shapes: list,
             ms=widest["ms"], plain_ms=widest["plain_ms"],
             bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
             library_ms=None, shapes=mine))
+    # lut_sum.cu's two instances, the first shape EvalMod's
+    for name, line_no in (("lut_sum", 201), ("lut_sum_dense", 229)):
+        mine = [c for c in legs if c["name"] == name]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="aesfhe_tpu_torch/csrc/lut_sum.cu",
+            replaces=f"aesfhe_tpu/core/ops_impl.py:{line_no}",
+            launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=mine[0]["ms"], plain_ms=mine[0]["plain_ms"],
+            bound_ms=mine[0]["bound_ms"], bound_by=mine[0]["bound_by"],
+            library_ms=None, shapes=mine))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1545,7 +1612,7 @@ def main(argv=None) -> int:
     cases.append(ks_inner_case(bench.bench_params(BENCH_LOGN, BENCH_LEVELS),
                                BENCH_LEVELS - 1, None, rng, dev))
     ntt_shapes = ntt_cases(params, rng, dev) + large_ntt_cases(rng, dev)
-    legs = ks_legs_cases(params, rng, dev)
+    legs = ks_legs_cases(params, rng, dev) + lut_sum_cases(params, rng, dev)
     if baseline is not None:
         legs_variants.compare(baseline)
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
-"""Card-only checks of the port's CUDA kernels against their plain versions,
-of the fused bootstrap's CUDA graph against the eager bootstrap, and of a
-captured key-switch against the eager one.
+"""Card-only checks of the port's CUDA kernels against their plain versions
+(the LUT sums inside a captured graph too), of the fused bootstrap's CUDA
+graph against the eager bootstrap, and of a captured key-switch against the
+eager one.
 
 Skipped without a CUDA card.  This file imports no JAX, so it also runs on
 a machine without the reference package's dependencies:
@@ -13,7 +14,8 @@ import torch
 from aesfhe_tpu_torch import interop
 from aesfhe_tpu_torch.bootstrap import FusedBootstrap
 from aesfhe_tpu_torch.context import EngineContext
-from aesfhe_tpu_torch.core import ks_inner, ks_legs, ntt, ops_impl, rns
+from aesfhe_tpu_torch.core import (ks_inner, ks_legs, lut_sum, ntt, ops_impl,
+                                   rns)
 from aesfhe_tpu_torch.core.params import CKKSParams, get_params
 
 
@@ -618,3 +620,120 @@ def test_keyswitch_graph_replay_equals_eager():
     want_b, want_a = ops_impl.keyswitch(p, tabs, c1, kb, ka)
     torch.cuda.synchronize()
     assert torch.equal(b, want_b) and torch.equal(a, want_a)
+
+
+def _lut_operands(primes, K, D, n, rng, dev="cuda"):
+    """(stack [K, D, L, n], consts [K, L, 4], neg [n], pts [K, L, n]) under
+    `primes`, a quarter of the residues 0 or q-1, every third term's
+    weights q-1 (re and imz) or (0, q-1)."""
+    q = np.asarray(primes, dtype=np.int64)
+    L = len(q)
+
+    def res(lead):
+        x = rng.integers(0, 1 << 62, (*lead, L, n)) % q[:, None]
+        pick = rng.integers(0, 8, x.shape)
+        return np.where(pick == 0, 0, np.where(pick == 1, q[:, None] - 1, x))
+
+    re, im = (rng.integers(0, 1 << 62, (K, L)) % q for _ in range(2))
+    re[1::3], im[1::3] = q - 1, q - 1
+    re[2::3], im[2::3] = 0, q - 1
+    sh = [[[rns.shoup_precompute(int(w), int(qq)) for w, qq in zip(row, q)]
+           for row in a] for a in (re, im)]
+    consts = np.stack([re, sh[0], im, sh[1]], axis=-1)
+    t = [rns.narrow(torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                    device=dev))
+         for a in (res((K, D)), consts, res((K,)))]
+    neg = torch.as_tensor(rng.integers(0, 2, n).astype(bool), device=dev)
+    return t[0], t[1], neg, t[2]
+
+
+def _lut_plain(stack, consts, neg, pts, tr):
+    return (lut_sum.lut_sum_plain(stack, consts, neg, tr.q),
+            lut_sum.lut_sum_dense_plain(stack, pts, tr.q, tr.rinv))
+
+
+@pytest.mark.parametrize("primes,L,n", [
+    ("prod_boot", 1, 1 << 16), ("prod_boot", 42, 1 << 16),
+    ("prod_boot", 55, 1 << 16), ("scale 2^14", 5, 1 << 16),
+    ("scale 2^14", 5, 1 << 9)])
+def test_lut_sum_kernels_equal_plain(primes, L, n):
+    """Both LUT-sum kernels torch.equal to their plain versions for K in
+    {1, 2, 7, 16, 33} and deg+1 in {2, 3}: prod_boot's first L q-primes at
+    N = 2^16, the primes below 2^16 of the scale-2^14 chain at 2^16 and on
+    a ring of 2^9 (part of one block); one launch a call; then one
+    captured graph of both, replayed on other inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = get_params("prod_boot") if primes == "prod_boot" else \
+        CKKSParams(n=1 << 10, max_level=4, scale_bits=14)
+    tr = ops_impl.DeviceTables(p, "cuda").rows(range(L))
+    qs = [int(q) for q in p.all_primes[:L]]
+    rng = np.random.default_rng(L + n)
+    for K in (1, 2, 7, 16, 33):
+        for D in (2, 3):
+            stack, consts, neg, pts = _lut_operands(qs, K, D, n, rng)
+            s0, d0 = lut_sum.launches_scalar, lut_sum.launches_dense
+            got = (lut_sum.lut_sum(stack, consts, neg, tr),
+                   lut_sum.lut_sum_dense(stack, pts, tr))
+            want = _lut_plain(stack, consts, neg, pts, tr)
+            torch.cuda.synchronize()
+            assert (lut_sum.launches_scalar, lut_sum.launches_dense) == (
+                s0 + 1, d0 + 1)
+            assert torch.equal(got[0], want[0]), (K, D)
+            assert torch.equal(got[1], want[1]), (K, D)
+    # a graph of both sums on static inputs, replayed on the next ones
+    ins = _lut_operands(qs, 7, 2, n, rng)
+    static = [t.clone() for t in ins]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = (lut_sum.lut_sum(*static[:3], tr),
+                lut_sum.lut_sum_dense(static[0], static[3], tr))
+    for _ in range(2):
+        ins = _lut_operands(qs, 7, 2, n, rng)
+        for s, t in zip(static, ins):
+            s.copy_(t)
+        g.replay()
+        want = _lut_plain(*ins, tr)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1])
+
+
+def test_linear_combination_launches_one_lut_sum():
+    """On the card an Engine.linear_combination with scalar coefficients
+    launches the scalar LUT-sum kernel once and the dense one never; with
+    per-slot coefficients each once; fused_pt_sum the dense one once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch import kernels
+    from aesfhe_tpu_torch.core.engine import Engine
+    eng = Engine(get_params("tiny"), device="cuda",
+                 rng=np.random.default_rng(4))
+    sk = eng.create_secret_key()
+    pk = eng.create_public_key(sk)
+    rng = np.random.default_rng(6)
+    x = [rng.uniform(-1, 1, eng.slot_count) for _ in range(3)]
+    cts = [eng.encrypt(v, pk) for v in x]
+    dense = rng.uniform(-1, 1, eng.slot_count)
+
+    def launches(run):
+        before = kernels.launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        return out, (after["lut_sum"] - before["lut_sum"],
+                     after["lut_sum_dense"] - before["lut_sum_dense"])
+
+    out, n = launches(lambda: eng.linear_combination(cts, [0.5, -0.25j, 1]))
+    assert n == (1, 0)
+    assert np.abs(eng.decrypt(out, sk)
+                  - (0.5 * x[0] - 0.25j * x[1] + x[2])).max() < 1e-2
+    out, n = launches(lambda: eng.linear_combination(cts, [dense, 0.5, 2]))
+    assert n == (1, 1)
+    assert np.abs(eng.decrypt(out, sk)
+                  - (dense * x[0] + 0.5 * x[1] + 2 * x[2])).max() < 1e-2
+    pt = eng.encode(dense, level=cts[0].level)
+    out, n = launches(lambda: eng.fused_pt_sum([(cts[0], pt), (cts[1], pt)]))
+    assert n == (0, 1)
+    assert np.abs(eng.decrypt(out, sk)
+                  - dense * (x[0] + x[1])).max() < 1e-2
