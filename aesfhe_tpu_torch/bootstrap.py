@@ -543,6 +543,10 @@ def _cheb_eval_ps(engine, coeffs: np.ndarray, u: Ciphertext, rlk,
 
     c0 = {i: float(coeffs[i]) for i in range(deg + 1)}
     out_ct, out_k = rec(c0)
+    # rec holds itself through its closure: without this the cycle keeps
+    # the basis T (~1 GiB of ciphertexts at prod_boot) on the card until
+    # the next garbage collection, so the peak follows the collector
+    del rec
     if abs(out_k) > 1e-14:
         out_ct = engine.add_plain(out_ct, out_k)
     return out_ct

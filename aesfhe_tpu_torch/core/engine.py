@@ -109,12 +109,14 @@ class Engine:
         self.device = resolve_device(device)
         self.rng = keys_mod.default_rng() if rng is None else rng
         self.tabs = ops_impl.DeviceTables(params, self.device)
-        # the bootstrap's phase times in ns, added while a profiler
-        # records (bootstrap._PhaseTimer)
+        # the bootstrap's phase times and the bit-sliced round's stage
+        # times in ns, added while a profiler records
+        # (bootstrap._PhaseTimer, trace.stage)
         self.counters = {k: 0 for k in
                          ("ct_mul", "pt_mul", "scalar_mul", "add", "rescale",
                           "keyswitch", "rotate", "conjugate", "bootstrap",
-                          "boot.cts_ns", "boot.evalmod_ns", "boot.stc_ns")}
+                          "boot.cts_ns", "boot.evalmod_ns", "boot.stc_ns",
+                          "aes.sub_bytes_ns", "aes.shift_mix_ns")}
         self._perm_cache: dict[int, torch.Tensor] = {}
         self._trivial_cache: dict = {}
         self._consts_cache: dict = {}
@@ -683,7 +685,8 @@ class Engine:
         """sum_k coeffs[k] * cts[k] (+ constant) with ONE rescale.
 
         Coefficients are complex scalars, Plaintexts (per-slot weights at
-        scale Delta) or numpy vectors (encoded on the fly).  `coeff_scale`
+        one scale, Delta unless the caller steers the output's scale) or
+        numpy vectors (encoded on the fly).  `coeff_scale`
         sets the encode scale of scalar coefficients; `target_scale` derives
         it so the output lands exactly on that scale.  Both need all-scalar
         coefficients."""
@@ -745,7 +748,8 @@ class Engine:
                                   constant) -> Ciphertext:
         """linear_combination with per-slot (Plaintext) coefficients plus an
         optional scalar group; one fused sum each, ONE rescale.  Dense
-        plaintexts must be at scale Delta."""
+        plaintexts share one scale (Delta, or one that steers the output's
+        scale), at which the scalar coefficients are encoded too."""
         all_cts = [p[0] for p in dense_pairs] + [p[0] for p in scalar_pairs]
         lvl = min(ct.level for ct in all_cts)
         lvl = min(lvl, min(p[1].level for p in dense_pairs))
@@ -754,11 +758,11 @@ class Engine:
         for ct in all_cts:
             if abs(ct.scale - base_scale) / base_scale > _SCALE_ACCEPT:
                 raise ValueError("linear_combination input scales differ")
-        target = self.params.scale
+        target = dense_pairs[0][1].scale
         for _, pt in dense_pairs:
             if abs(pt.scale - target) / target > _SCALE_ACCEPT:
-                raise ValueError("dense coefficient plaintexts must be at "
-                                 "scale Delta")
+                raise ValueError("dense coefficient plaintexts must share "
+                                 "one scale")
         deg = max(ct.degree for ct in all_cts)
         stack_d = torch.stack([self._pad(ct.data[:, :lvl + 1], deg)
                                for ct, _ in dense_pairs])

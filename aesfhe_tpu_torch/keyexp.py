@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .aes_tables import AES_SBOX
+from .aes_tables import AES_SBOX, gmul
 
 RCON = np.array([0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80, 0x1B, 0x36],
                 dtype=np.uint8)
@@ -30,3 +30,31 @@ def expand_key_128(key: bytes | np.ndarray) -> np.ndarray:
     for r in range(11):
         out[r] = np.concatenate(words[4 * r:4 * r + 4])
     return out
+
+
+def inv_mix_columns(state16: np.ndarray) -> np.ndarray:
+    """InvMixColumns (FIPS-197 5.3.3) of one 16-byte state, column by
+    column (byte i is row i % 4, column i // 4)."""
+    from .ops.bitplane import INV_MIX    # the services' module, with torch
+    s = np.asarray(state16, dtype=np.uint8).reshape(4, 4)   # [column, row]
+    out = np.zeros_like(s)
+    for c in range(4):
+        for r in range(4):
+            v = 0
+            for j in range(4):
+                v ^= gmul(int(s[c, j]), INV_MIX[r][j])
+            out[c, r] = v
+    return out.reshape(16)
+
+
+def equivalent_inverse_keys(round_keys: np.ndarray) -> np.ndarray:
+    """FIPS-197 5.3.5: the equivalent inverse cipher's round keys, [11, 16]:
+    dw[r] = InvMixColumns(w[r]) for rounds 1-9, dw[0] = w[0] and
+    dw[10] = w[10].  InvMixColumns is linear over GF(2), so
+    InvMixColumns(x) ^ dw[r] = InvMixColumns(x ^ w[r]): the inverse round
+    can run InvMixColumns before its AddRoundKey."""
+    rk = np.asarray(round_keys, dtype=np.uint8)
+    dw = rk.copy()
+    for r in range(1, 10):
+        dw[r] = inv_mix_columns(rk[r])
+    return dw

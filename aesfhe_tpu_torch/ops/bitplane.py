@@ -85,6 +85,10 @@ class BitSliceService:
     # the dense-plaintext LRU holds one round's working set: 8 ARK sign
     # planes, ~7 ShiftRows mask variants, 4 row masks
     _PT_CACHE_CAP = 24
+    # the inverse round's key-folded row masks, kept apart from that LRU:
+    # a cipher's 9 round keys x 8 planes x 4 rows, so a cipher after the
+    # first encodes none of them
+    _FOLD_CACHE_CAP = 9 * 8 * 4
 
     def __init__(self, eng_wrap: EngineWrapper):
         self.eng = eng_wrap
@@ -95,25 +99,33 @@ class BitSliceService:
         self._W = {False: walsh_tables(AES_SBOX),
                    True: walsh_tables(AES_INV_SBOX)}
         self._pt_cache: Dict = {}
+        self._fold_cache: Dict = {}
         self._walsh_const_cache: Dict = {}
         # direct Galois keys of the hoisted rotation batches: ShiftRows uses
         # +-4r, MixColumns' in-column row rotations +-1..3
         eng_wrap.ensure_rotation_steps(
             [1, 2, 3, -1, -2, -3, 4, 8, 12, -4, -8, -12])
 
-    def _cached_pt(self, key, vec: np.ndarray, level: int | None = None):
+    def _cached_pt(self, key, vec: np.ndarray, level: int | None = None,
+                   scale: float | None = None, folded: bool = False):
         """Device-encoded dense weight vector, LRU-cached within a round
         (c64 embedding: ~1e-6 relative error, far below the +-1 sign margin
         and the 0/1 mask contrast).  `level` caps the encode height; a later
-        call needing more rows re-encodes."""
-        need = self.eng.engine.params.top_level if level is None else level
-        pt = self._pt_cache.pop(key, None)
-        if pt is None or pt.level < need:
-            pt = self.eng.engine.encode(np.asarray(vec, dtype=np.float64),
-                                        level=need, device=True)
-        self._pt_cache[key] = pt
-        while len(self._pt_cache) > self._PT_CACHE_CAP:
-            self._pt_cache.pop(next(iter(self._pt_cache)))
+        call needing more rows re-encodes.  `scale` (default Delta) is the
+        encode scale.  `folded` keeps the entry in the cipher-wide cache of
+        key-folded masks instead."""
+        eng = self.eng.engine
+        need = eng.params.top_level if level is None else level
+        scale = eng.params.scale if scale is None else scale
+        cache, cap = ((self._fold_cache, self._FOLD_CACHE_CAP) if folded
+                      else (self._pt_cache, self._PT_CACHE_CAP))
+        pt = cache.pop(key, None)
+        if pt is None or pt.level < need or pt.scale != scale:
+            pt = eng.encode(np.asarray(vec, dtype=np.float64), level=need,
+                            scale=scale, device=True)
+        cache[key] = pt
+        while len(cache) > cap:
+            cache.pop(next(iter(cache)))
         return pt
 
     # -- encode / decode ---------------------------------------------------
@@ -321,9 +333,21 @@ class BitSliceService:
         # output slot r+4c reads in[j+4c]: source offset j - r, in-column
         return (r - j) % self.sc
 
-    def mix_columns(self, st: BitState, inverse: bool = False) -> BitState:
+    def mix_columns(self, st: BitState, inverse: bool = False,
+                    fold_key: Optional[np.ndarray] = None,
+                    align: bool = True) -> BitState:
         """out_k = prod_i G_i(k), G_i(k) = sum_r mask_r * rot(plane, -delta);
-        rotations hoisted per source plane."""
+        rotations hoisted per source plane.  `fold_key` folds a following
+        AddRoundKey into the first factor's row masks (its key signs at
+        the output slots), at no level.
+
+        `align=False`, for a cleanse that follows and retargets every plane
+        to Delta: the masks are encoded at the scale that lands each factor
+        on Delta (a tree of depth 5 would raise its inputs' scale, ~2.2
+        Delta after SubBytes and ShiftRows, to the 32nd power, past what
+        the cleanse's constants can encode), and each plane is left at its
+        own tree's level and scale (the inverse's 19-factor planes would
+        otherwise pay one more level to meet the 11-factor planes' scale)."""
         eng = self.eng.engine
         rlk = self.eng.relin_key
         rot_keys = self.eng.rot_key
@@ -339,17 +363,32 @@ class BitSliceService:
             rotated[kp] = dict(zip(steps, eng.hoisted_rotations(
                 st.bits[kp], rot_keys, steps)))
         lvl_mask = max(b.level for b in st.bits)
+        mask_scale = None
+        if not align:
+            b = st.bits[0]
+            mask_scale = (eng.params.scale * float(eng.params.q_primes[
+                b.level]) / b.scale)
         row_masks = [self._cached_pt(("row", r),
                                      (self._row == r).astype(np.float64),
-                                     level=lvl_mask)
+                                     level=lvl_mask, scale=mask_scale)
                      for r in range(4)]
+        fold_b = (bytes(np.asarray(fold_key, dtype=np.uint8))
+                  if fold_key is not None else None)
         out = []
         for k in range(8):
             factors = []
-            for slot in plans[k]:
+            for i, slot in enumerate(plans[k]):
                 cts = [rotated[kp][self._mix_rot_step(r, j)]
                        for r, (kp, j) in enumerate(slot)]
-                factors.append(eng.linear_combination(cts, row_masks))
+                masks = row_masks
+                if i == 0 and fold_b is not None:
+                    sign = self._key_signs(fold_key, k)
+                    masks = [self._cached_pt(
+                        ("rowf", r, fold_b, k),
+                        (self._row == r).astype(np.float64) * sign,
+                        level=lvl_mask, scale=mask_scale, folded=True)
+                        for r in range(4)]
+                factors.append(eng.linear_combination(cts, masks))
             while len(factors) > 1:          # balanced product tree
                 nxt = [eng.multiply(factors[i], factors[i + 1], rlk)
                        for i in range(0, len(factors) - 1, 2)]
@@ -357,6 +396,8 @@ class BitSliceService:
                     nxt.append(factors[-1])
                 factors = nxt
             out.append(factors[0])
+        if not align:
+            return BitState(out)
         # odd-arity leftovers sit one level above: align the set
         lvl = min(ct.level for ct in out)
         target = min(ct.scale for ct in out)

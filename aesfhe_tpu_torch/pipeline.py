@@ -31,7 +31,7 @@ import numpy as np
 from . import trace
 from .coeffs import generate as coeffgen
 from .core.ciphertext import Ciphertext
-from .keyexp import expand_key_128
+from .keyexp import equivalent_inverse_keys, expand_key_128
 from .ops.bitplane import BitSliceService, BitState
 from .ops.mixcolumns_service import AESFHETransformer, NibblePair
 from .ops.shiftrows_service import AESFHEShiftRows
@@ -287,6 +287,7 @@ class AESFHE128Bitsliced:
         self.eng = eng_wrap
         self.svc = BitSliceService(eng_wrap)
         self.round_keys = expand_key_128(key)
+        self.inv_round_keys = equivalent_inverse_keys(self.round_keys)
         self.refresh = refresh
 
     def encrypt_state(self, state_bytes: np.ndarray) -> BitState:
@@ -336,9 +337,9 @@ class AESFHE128Bitsliced:
                 st = self._refresh(st, self.ROUND_DEPTH)
                 with trace.span("ckks.aes.ark"):
                     st = svc.xor_plain(st, self.round_keys[r - 1])
-                with trace.span("ckks.aes.sub_bytes"):
+                with trace.stage(self.eng.engine, "sub_bytes"):
                     st = svc.sub_bytes(st)
-                with trace.span("ckks.aes.shift_mix"):
+                with trace.stage(self.eng.engine, "shift_mix"):
                     if r == 10:
                         st = svc.shift_rows(st, fold_key=self.round_keys[10])
                     else:
@@ -414,19 +415,69 @@ class AESFHE128Bitsliced:
                                  for p in paths]), r
         return None, 0
 
-    def decrypt_rounds(self, st: BitState, rounds: int = 10) -> BitState:
-        """Inverse cipher: undo rounds `rounds`..1, then ARK(rk0)."""
+    # levels of the inverse round's stages at prod_boot (one scale unit a
+    # level): InvSubBytes 4, InvShiftRows 1, InvMixColumns 6 (row masks,
+    # then a product tree of depth 5: its planes are products of 11 to 19
+    # masked rotations), the cleanse 3, which make ROUND_DEPTH
+    INV_MIX_DEPTH = 6
+    CLEANSE_DEPTH = 3
+
+    def decrypt_round(self, st: BitState, i: int, rounds: int = 10,
+                      work: int | None = None) -> BitState:
+        """Round i (1..rounds) of the inverse of a `rounds`-round cipher,
+        in the equivalent inverse cipher's order (FIPS-197 5.3.5) with one
+        cleanse: InvSubBytes, InvShiftRows, then InvMixColumns with
+        AddRoundKey(dw) folded into its first factor's row masks (no
+        level), then the cleanse; ROUND_DEPTH levels.  Round i undoes the
+        SubBytes and ShiftRows of AES round r = rounds + 1 - i and the
+        MixColumns and AddRoundKey of round r - 1.  Round 1 adds w[10]
+        first (one plaintext multiply), or for rounds < 10 undoes that
+        round's MixColumns first (dw[rounds] folded, and a cleanse); the
+        last round folds w[0] into its InvShiftRows masks and ends there.
+
+        A pair-packed refresh first unless i is 1, when the state lacks
+        ROUND_DEPTH levels.  `work` then drops the state to that level
+        (round 1 of a partial inverse to the levels its extra MixColumns
+        needs above it)."""
         svc = self.svc
-        for r in range(rounds, 0, -1):
-            with trace.span("ckks.aes.round"):
-                st = self._refresh(st, self.ROUND_DEPTH + 4)
-                with trace.span("ckks.aes.ark"):
-                    st = svc.xor_plain(st, self.round_keys[r])
-                with trace.span("ckks.aes.shift_mix"):
-                    if r != 10:
-                        st = svc.cleanse(svc.mix_columns(st, inverse=True))
-                    st = svc.shift_rows(st, inverse=True)
-                with trace.span("ckks.aes.sub_bytes"):
-                    st = svc.cleanse(svc.sub_bytes(st, inverse=True))
-        with trace.span("ckks.aes.ark"):
-            return svc.xor_plain(st, self.round_keys[0])
+        eng = self.eng.engine
+        r = rounds + 1 - i
+        with trace.span("ckks.aes.round"):
+            if i > 1:
+                st = self._refresh(st, self.ROUND_DEPTH)
+            if work is not None:
+                if i == 1 and rounds < 10:
+                    work += self.INV_MIX_DEPTH + self.CLEANSE_DEPTH
+                if st.level > work:
+                    st = BitState([eng._drop(b, work) for b in st.bits])
+            if i == 1:
+                if rounds == 10:
+                    with trace.span("ckks.aes.ark"):
+                        st = svc.xor_plain(st, self.round_keys[10])
+                else:
+                    with trace.stage(eng, "shift_mix"):
+                        st = svc.cleanse(svc.mix_columns(
+                            st, inverse=True,
+                            fold_key=self.inv_round_keys[rounds],
+                            align=False))
+                        # the cleanse left every plane on Delta: one level
+                        # for SubBytes' products
+                        st = BitState([eng._drop(b, st.level)
+                                       for b in st.bits])
+            with trace.stage(eng, "sub_bytes"):
+                st = svc.sub_bytes(st, inverse=True)
+            with trace.stage(eng, "shift_mix"):
+                if r == 1:
+                    return svc.shift_rows(st, inverse=True,
+                                          fold_key=self.round_keys[0])
+                st = svc.shift_rows(st, inverse=True)
+                return svc.cleanse(svc.mix_columns(
+                    st, inverse=True, fold_key=self.inv_round_keys[r - 1],
+                    align=False))
+
+    def decrypt_rounds(self, st: BitState, rounds: int = 10) -> BitState:
+        """Inverse cipher: the inverse of encrypt_rounds(., rounds), round
+        by round (decrypt_round), refreshing where a round lacks levels."""
+        for i in range(1, rounds + 1):
+            st = self.decrypt_round(st, i, rounds)
+        return st

@@ -90,9 +90,9 @@ def run_round(aes: AESFHE128Bitsliced, st: BitState, r: int,
             st = BitState([eng._drop(b, work) for b in st.bits])
         with trace.span("ckks.aes.ark"):
             st = svc.xor_plain(st, aes.round_keys[r - 1])
-        with trace.span("ckks.aes.sub_bytes"):
+        with trace.stage(eng, "sub_bytes"):
             st = svc.sub_bytes(st)
-        with trace.span("ckks.aes.shift_mix"):
+        with trace.stage(eng, "shift_mix"):
             if r == 10:
                 return svc.shift_rows(st, fold_key=aes.round_keys[10])
             st = svc.cleanse(svc.mix_columns(svc.shift_rows(st)))
@@ -100,6 +100,17 @@ def run_round(aes: AESFHE128Bitsliced, st: BitState, r: int,
             with trace.span("ckks.aes.ark"):
                 st = svc.xor_plain(st, aes.round_keys[rounds])
         return st
+
+
+def run_inverse_round(aes: AESFHE128Bitsliced, st: BitState, i: int,
+                      rounds: int) -> BitState:
+    """Inverse round i of the inverse of a `rounds`-round cipher from the
+    uniform work level ROUND_DEPTH + 1, as run_round runs the forward: a
+    pair-packed refresh first unless i is 1, then
+    AESFHE128Bitsliced.decrypt_round (the equivalent inverse cipher, one
+    cleanse a round).  The last round's output decrypts to the
+    plaintexts."""
+    return aes.decrypt_round(st, i, rounds, work=aes.ROUND_DEPTH + 1)
 
 
 def run_flagship(aes: AESFHE128Bitsliced, state: np.ndarray,

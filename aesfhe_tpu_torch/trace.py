@@ -8,11 +8,20 @@ shared no-op context, which costs the flag check alone.  A range opens
 nothing inside a CUDA graph's replay: the bootstrap times its phases there
 with events (`bootstrap._PhaseTimer`).
 
+`stage(engine, name)` is the span `ckks.aes.<name>` of a bit-sliced
+round's SubBytes or ShiftRows+MixColumns stage (forward and inverse) that,
+while a profiler records, also adds the stage's time to the engine's
+counters `aes.sub_bytes_ns` / `aes.shift_mix_ns`: timing events at its
+edges on the card, the end waited for; the host clock on the CPU.  With no
+profiler it records and waits for nothing.
+
 Every name starts with `ckks.`, which a trace reader tells from a device
 operation by (a range's annotation on the card's timeline is no kernel):
 
-    ckks.aes.round       one AES round (`run_full_aes.run_round`, the loop
-                         bodies of both pipelines' encrypt/decrypt_rounds)
+    ckks.aes.round       one AES round (`run_full_aes.run_round`,
+                         `AESFHE128Bitsliced.decrypt_round`, the loop
+                         bodies of encrypt_rounds and the zeta
+                         decrypt_rounds)
     ckks.aes.ark         AddRoundKey (and the zeta entry's input cleanse)
     ckks.aes.sub_bytes   SubBytes
     ckks.aes.shift_mix   ShiftRows, MixColumns and the cleanse after them
@@ -27,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 
 import torch
 
@@ -84,3 +94,28 @@ def install(module) -> None:
             functools.update_wrapper(scoped, fn)
             scoped.ckks_scope = scope
             setattr(module, fn_name, scoped)
+
+
+@contextlib.contextmanager
+def stage(engine, name: str):
+    """The span `ckks.aes.<name>`; while a profiler records, the stage's
+    nanoseconds are added to engine.counters[f"aes.{name}_ns"]."""
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
+    cuda = engine.device.type == "cuda"
+    with torch.profiler.record_function("ckks.aes." + name):
+        if cuda:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+        else:
+            t0 = time.perf_counter_ns()
+        yield
+        if cuda:
+            marks[1].record()
+            marks[1].synchronize()
+            ns = round(marks[0].elapsed_time(marks[1]) * 1e6)
+        else:
+            ns = time.perf_counter_ns() - t0
+    key = f"aes.{name}_ns"
+    engine.counters[key] = engine.counters.get(key, 0) + ns

@@ -737,3 +737,40 @@ def test_linear_combination_launches_one_lut_sum():
     assert n == (0, 1)
     assert np.abs(eng.decrypt(out, sk)
                   - dense * (x[0] + x[1])).max() < 1e-2
+
+
+def test_inverse_round_after_a_fused_refresh_exact():
+    """At prod_boot: the state inverse round 1 leaves (its clear bytes
+    encrypted and dropped to that round's exit level), then
+    run_full_aes.run_inverse_round's round 2, whose pair-packed refresh
+    captures and replays the fused bootstrap: all 2048 blocks decode
+    exactly to the state round 2 leaves (block 0 from FIPS-197 C.1's
+    plaintext)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aesfhe_tpu_torch import run_full_aes
+    from aesfhe_tpu_torch.aes_tables import (AES_SBOX, aes128_partial,
+                                             shift_rows)
+    from aesfhe_tpu_torch.ops.bitplane import BitState
+    aes, _ = run_full_aes.setup("prod_boot", 11, "cuda")
+    eng = aes.eng.engine
+    state = run_full_aes.make_state(eng.slot_count, 12)
+    key = run_full_aes.FIPS_KEY
+
+    def entering(r):
+        # the state after SubBytes and ShiftRows of AES round r, which
+        # inverse round 10 - r leaves
+        return np.concatenate([
+            shift_rows(AES_SBOX[aes128_partial(state[b:b + 16], key, r - 1)])
+            for b in range(0, len(state), 16)])
+
+    st = aes.encrypt_state(entering(9))
+    st = BitState([eng._drop(b, 1) for b in st.bits])
+    boots = eng.counters["bootstrap"]
+    out = run_full_aes.run_inverse_round(aes, st, 2, 10)
+    torch.cuda.synchronize()
+    assert eng.counters["bootstrap"] - boots == 4
+    assert out.level >= 0
+    got = aes.decrypt_state(out)
+    want = entering(8)
+    assert int(np.count_nonzero(got != want)) == 0

@@ -10,6 +10,12 @@ margin is 1): the two packages encode their round plaintexts with
 different complex64 FFTs, so the residues differ in the last units while
 the decoded values agree to ~1e-5.
 
+The inverse services (InvSubBytes, InvShiftRows, InvMixColumns) are held
+against the reference's the same way.  The port's inverse round follows the
+equivalent inverse cipher with one cleanse and the reference's does not, so
+the partial inverse `decrypt_rounds(., 1)` is held to the same decrypted
+bytes alone.
+
 The side-by-side runs are `slow`: the reference's round alone costs ~27 s
 of JAX compiles on the CPU.  The port's own round against the oracle stays
 in the default run."""
@@ -23,11 +29,12 @@ from aesfhe_tpu.ops.bitplane import BitState as JBitState
 from aesfhe_tpu.ops.xor_service import EngineWrapper as JEngineWrapper
 from aesfhe_tpu.pipeline import AESFHE128Bitsliced as JAES
 from aesfhe_tpu_torch import interop
-from aesfhe_tpu_torch.aes_tables import aes128_partial
+from aesfhe_tpu_torch.aes_tables import aes128_partial, shift_rows
 from aesfhe_tpu_torch.context import EngineContext
 from aesfhe_tpu_torch.core.engine import Engine
 from aesfhe_tpu_torch.core.params import get_params
-from aesfhe_tpu_torch.ops.bitplane import BitState
+from aesfhe_tpu_torch.keyexp import inv_mix_columns
+from aesfhe_tpu_torch.ops.bitplane import AES_INV_SBOX, BitState
 from aesfhe_tpu_torch.ops.xor_service import EngineWrapper
 from aesfhe_tpu_torch.pipeline import AESFHE128Bitsliced
 
@@ -146,3 +153,62 @@ def test_rounds_match_reference_and_oracle(both, rounds):
         vj = np.real(jaes.eng.decrypt(jb))
         vt = np.real(taes.eng.decrypt(tb))
         assert np.max(np.abs(vt - vj)) < SLOT_TOL
+
+
+def _same_planes(jaes, taes, jout, tout):
+    for jb, tb in zip(jout.bits, tout.bits, strict=True):
+        assert tb.level == jb.level and tb.scale == jb.scale
+        vj = np.real(jaes.eng.decrypt(jb))
+        vt = np.real(taes.eng.decrypt(tb))
+        assert np.max(np.abs(vt - vj)) < SLOT_TOL
+
+
+# the clear inverse services on one block (ShiftRows four times is the
+# identity)
+INVERSE_SERVICES = {
+    "sub_bytes": lambda b: AES_INV_SBOX[b],
+    "shift_rows": lambda b: shift_rows(shift_rows(shift_rows(b))),
+    "mix_columns": inv_mix_columns,
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("service", sorted(INVERSE_SERVICES))
+def test_inverse_services_match_reference(both, service):
+    """Each inverse service from the same ciphertexts at one round's work
+    level: the same bytes as the reference and the clear service, and the
+    same levels, scales and slots (mix_columns aligned, as the
+    reference's)."""
+    jaes, taes, state, _ = both
+    jin, tin, _ = _inputs(both, 1)
+    jout = getattr(jaes.svc, service)(jin, inverse=True)
+    tout = getattr(taes.svc, service)(tin, inverse=True)
+    clear = INVERSE_SERVICES[service]
+    want = np.concatenate([clear(state[b:b + 16])
+                           for b in range(0, len(state), 16)])
+    assert np.array_equal(jaes.decrypt_state(jout), want)
+    assert np.array_equal(taes.decrypt_state(tout), want)
+    _same_planes(jaes, taes, jout, tout)
+
+
+@pytest.mark.slow
+def test_partial_inverse_matches_reference(both):
+    """decrypt_rounds(., 1) from the same ciphertexts of a one-round cipher:
+    the reference's two-cleanse round and the port's equivalent inverse
+    round both decrypt to the plaintexts."""
+    jaes, taes, state, _ = both
+    one = np.concatenate([aes128_partial(state[b:b + 16], KEY, 1)
+                          for b in range(0, len(state), 16)])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jkeys, "_rng", np.random.default_rng(SEED + 1))
+        jst = jaes.encrypt_state(one)
+    # the reference's two-cleanse round needs more levels than a forward
+    # round: start both at two rounds' work level
+    work = 2 * JAES.ROUND_DEPTH + 1
+    jin = JBitState([jaes.eng.engine._drop(b, work) for b in jst.bits])
+    tin = BitState([interop.ciphertext(np.asarray(b.data), b.scale,
+                                       device="cpu") for b in jin.bits])
+    jout = jaes.decrypt_rounds(jin, rounds=1)
+    tout = taes.decrypt_rounds(tin, rounds=1)
+    assert np.array_equal(jaes.decrypt_state(jout), state)
+    assert np.array_equal(taes.decrypt_state(tout), state)
